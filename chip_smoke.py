@@ -7,14 +7,24 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   1. print the card and its power limit; build every CUDA kernel from
      resshift_tpu_torch/csrc with nvcc (into the ignored _build/);
   2. hold each kernel (A swin_window_attn, B swin_mlp, C flash_attn_1h,
-     D vq_nearest) against its plain PyTorch version at the main path's
-     shapes, in bf16 and f32, and time both;
+     D vq_nearest, E shift_tokens) against its plain PyTorch version at the
+     main paths' shapes, in bf16 and f32, and time both; C also at the
+     N = 49152 of a whole photo; one wide Swin block (192x256) both ways,
+     through E and through the shift-absorbing A and B;
   3. run realsr_v1 at full width (seeded random weights, bf16, 15 steps,
      batch 8 of 64x64 LQ tiles) through ResShiftPipeline.sample and check
      each kernel's launch count in that one call;
   4. run the same sample through the plain versions (patched in here only)
      and require >= 35 dB PSNR on the final latent;
   5. run one padded, chopped input through sample;
+  6. realsr_v3 on a whole 176x250 photo (batch 1, unchopped, a 192x256
+     latent, so the widest Swin level takes E): launch counts derived from
+     the model's structure, the output, >= 35 dB latent PSNR against the
+     plain versions (E included, C in query chunks), ms per call, Mpx/s;
+  7. realsr_v3 on a whole 512x512 photo (a 512x512 latent), kernels only:
+     launch counts and time;
+  8. `python -m resshift_tpu_torch.cli infer` in a subprocess on a folder of
+     two PNGs written with the port's own codec (realsr_v1, bf16);
 then print the `kernels` JSON line and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
@@ -26,12 +36,15 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 # the main path's Swin shapes (heads, window tokens, embed, MLP) and batch
 NH, N, C, HIDDEN, BSZ = 6, 64, 192, 768, 8
+# latents of whole photos: 176x250 LQ padded to 192x256, and 512x512 LQ
+WIDE_LATENTS = [(192, 256), (512, 512)]
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 PEAK_BYTES = 3.35e12
@@ -66,15 +79,16 @@ def check(name: str, got, want, rel: float, atol: float) -> float:
     return err
 
 
-def profile_sample(torch, fn) -> None:
+def profile_sample(torch, fn):
     """Device time of one sample call by kernel name, and the device's busy
-    share of the call's wall time, from a torch.profiler trace."""
+    share of the call's wall time, from a torch.profiler trace.  Returns
+    the call's result and its wall time in ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t1 = time.perf_counter()
-        fn()
+        out = fn()
         wall_us = (time.perf_counter() - t1) * 1e6
     by_name: dict[str, float] = {}
     for ev in prof.events():
@@ -83,11 +97,12 @@ def profile_sample(torch, fn) -> None:
     busy = sum(by_name.values())
     if not busy:
         print("  profiler: no device time recorded", flush=True)
-        return
+        return out, wall_us / 1e3
     print(f"  profiler: device busy {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
           f"({100 * busy / wall_us:.1f}%, kernels assumed not to overlap)", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {us / 1e3:9.2f} ms {100 * us / busy:5.1f}%  {name[:110]}", flush=True)
+    return out, wall_us / 1e3
 
 
 def check_kernels(dev):
@@ -181,6 +196,22 @@ def check_kernels(dev):
             print(f"  C ms {timed['C'][0]:.4f}, plain ms {timed['C'][1]:.4f}, "
                   f"scaled_dot_product_attention ms {timed['C'][2]:.4f}", flush=True)
 
+    # C at a whole photo's latent, (1, 49152, 512) bf16, against the plain
+    # version in query chunks (the dense one would hold a 9.7 GB score matrix)
+    nq = WIDE_LATENTS[0][0] * WIDE_LATENTS[0][1]
+    q, k, v = (rn(1, nq, 512).to(torch.bfloat16) for _ in range(3))
+    check(f"C bf16 (1, {nq}, 512)", fa.flash_attention_1h(q, k, v),
+          fa.chunked_attention_plain(q, k, v), *tol[torch.bfloat16])
+    timed["C wide"] = (cuda_ms(torch, lambda: fa.flash_attention_1h(q, k, v), reps=2, warmup=1),
+                       cuda_ms(torch, lambda: fa.chunked_attention_plain(q, k, v), reps=2,
+                               warmup=1),
+                       cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                           q[:, None], k[:, None], v[:, None]), reps=2, warmup=1))
+    print(f"  C (1, {nq}, 512) ms {timed['C wide'][0]:.4f}, plain (chunked) ms "
+          f"{timed['C wide'][1]:.4f}, scaled_dot_product_attention ms {timed['C wide'][2]:.4f}",
+          flush=True)
+    del q, k, v
+
     # D at the decode: 8 x 64^2 latent rows against the 8192 x 3 codebook
     z, emb = rn(bsz * 4096, 3), 0.5 * rn(8192, 3)
     got, want = vq.nearest_codebook_indices(z, emb), vq.nearest_codebook_indices_plain(z, emb)
@@ -203,10 +234,129 @@ def check_kernels(dev):
     return errs, timed
 
 
+def check_shift(dev):
+    """Phase 2, kernel E: exactly the plain gather, both ways, in bf16 and
+    f32, at the whole-photo latents (192x256 and 512x512); times E, the
+    plain gather and torch.index_select, and returns the bf16 times at
+    192x256 (E, plain, index_select)."""
+    import torch
+
+    from resshift_tpu_torch.ops import shift as shift_ops
+    from resshift_tpu_torch.ops.swin_block import shift_permutation
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    timed = None
+    for dt in (torch.bfloat16, torch.float32):
+        for h, w in WIDE_LATENTS:
+            x = torch.randn(1, h * w, C, generator=g, device=dev).to(dt)
+            for inverse in (False, True):
+                got = shift_ops.shift_tokens(x, h, w, 8, 4, inverse)
+                if not torch.equal(got, shift_ops.shift_tokens_plain(x, h, w, 8, 4, inverse)):
+                    raise AssertionError(f"E {dt} {h}x{w} inverse={inverse} differs from the gather")
+            idx = torch.as_tensor(shift_permutation(h, w, 8, 4)[0], device=dev)
+            t = (cuda_ms(torch, lambda: shift_ops.shift_tokens(x, h, w, 8, 4)),
+                 cuda_ms(torch, lambda: shift_ops.shift_tokens_plain(x, h, w, 8, 4)),
+                 cuda_ms(torch, lambda: torch.index_select(x, 1, idx)))
+            print(f"  E {dt} (1, {h * w}, {C}): exact both ways; ms {t[0]:.4f}, plain ms "
+                  f"{t[1]:.4f}, index_select ms {t[2]:.4f}", flush=True)
+            if dt == torch.bfloat16 and (h, w) == WIDE_LATENTS[0]:
+                timed = t
+    return timed
+
+
+def check_wide_block(dev):
+    """Phase 2: one shifted Swin block at a 192x256 map in bf16, through E
+    around the unshifted A and B and through the shift-absorbing A and B;
+    they must agree within phase 2's bf16 band.  Returns both ms."""
+    import torch
+
+    from resshift_tpu_torch.models.swin import SwinTransformerBlock
+    from resshift_tpu_torch.ops import swin_block as sb
+
+    h, w = WIDE_LATENTS[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    blk = SwinTransformerBlock(C, 64, NH, 8, shift=True, dtype=torch.bfloat16).to(dev)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.startswith("norm") and name.endswith("weight"):
+                p.copy_(1 + 0.1 * rn(*p.shape))
+            elif p.dim() == 1 or name.endswith("table"):
+                p.copy_(0.02 * rn(*p.shape))
+            else:
+                p.copy_(rn(*p.shape) / p[0].numel() ** 0.5)
+    xt = rn(1, h * w, C).to(torch.bfloat16)
+    orig = sb.shift_fuse_fits
+
+    def route(fused):
+        sb.shift_fuse_fits = lambda wd, ws: fused
+        try:
+            with torch.no_grad():
+                return blk(xt, h, w)
+        finally:
+            sb.shift_fuse_fits = orig
+
+    via_e, fused = route(False), route(True)
+    check("wide block y, E route vs fused route", via_e[0], fused[0], 2 ** -6, 1e-3)
+    for i, s in ((1, "sum"), (2, "sumsq")):
+        check(f"wide block {s}", via_e[i], fused[i], 1e-3, 1e-3)
+    ms = (cuda_ms(torch, lambda: route(False)), cuda_ms(torch, lambda: route(True)))
+    print(f"  wide block (1, {h * w}, {C}) bf16: E route {ms[0]:.4f} ms, fused route "
+          f"{ms[1]:.4f} ms", flush=True)
+    return ms
+
+
+def expected_launches(cfg: dict, lat_h: int, lat_w: int) -> dict:
+    """Kernel launches of one sample call at one (lat_h, lat_w) latent tile,
+    from the UNet's structure: a BasicLayer of `swin_depth` blocks after the
+    first ResBlock of each level in `attention_resolutions` and in the
+    middle; odd blocks shifted where the build resolution exceeds the
+    window; a shifted block on a map wider than 1024 tokens per window-row
+    (the JAX package's dispatch) launches E twice around unshifted A and B,
+    else the shift-absorbing A and B.  C runs in the encoder and decoder
+    middle, D once."""
+    m = cfg["model"]
+    win, depth, size = m["window_size"], m["swin_depth"], m["image_size"]
+    mult, attn = m["channel_mult"], m["attention_resolutions"]
+    ds, layers = size, []
+    for level in range(len(mult)):
+        layers += [ds] if ds in attn else []
+        ds = ds // 2 if level != len(mult) - 1 else ds
+    layers.append(ds)  # middle
+    for level in reversed(range(len(mult))):
+        layers += [ds] if ds in attn else []
+        ds = ds * 2 if level else ds
+    steps = cfg["diffusion"]["steps"]
+    n = {"A": 0, "B": 0, "E": 0, "fused shift": 0}
+    for ds in layers:
+        ws = min(win, ds)
+        n["A"] += depth
+        n["B"] += depth
+        if ds > win:  # the odd blocks are shifted
+            shifted = depth // 2
+            if (lat_w * ds // size) * ws <= 1024:
+                n["fused shift"] += shifted
+            else:
+                n["E"] += 2 * shifted
+    want = {k: v * steps for k, v in n.items()}
+    want.update(C=2, D=1)
+    return want
+
+
+def read_launches(kernels: dict, sb) -> dict:
+    got = {k: kern.launches for k, kern in kernels.items()}
+    got["fused shift"] = sb.SWIN_WINDOW_ATTN.variants.get("shift", 0)
+    if sb.SWIN_MLP.variants.get("unshift", 0) != got["fused shift"]:
+        raise AssertionError("shifted A and unshifting B launches differ")
+    return got
+
+
 def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
-    """The `kernels` report: each kernel's launches in the sample call, its
-    bf16 error and times from phase 2, and its bound at the timed shapes
-    (bytes: each input read once, each output written once)."""
+    """The `kernels` report: each kernel's launches in this slice's main
+    path (the whole photo of phase 6; every sample phase under
+    `launches_by_phase`), its bf16 error and times from phase 2, and its
+    bound at the timed shapes (bytes: each input read once, each output
+    written once)."""
     nh, n, c, hidden, bsz = NH, N, C, HIDDEN, BSZ
     s2 = 2  # bf16 bytes
     t, nw = 4096, 4096 // n
@@ -217,6 +367,7 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     c_bytes, c_ops = 4 * bsz * 4096 * 512 * s2, 4 * bsz * 4096 ** 2 * 512
     m_rows = bsz * 4096
     d_bytes, d_ops = m_rows * 3 * 4 + 8192 * 3 * 4 + m_rows * 4, m_rows * 8192 * (2 * 3 + 2)
+    e_bytes = 2 * WIDE_LATENTS[0][0] * WIDE_LATENTS[0][1] * c * s2  # a permutation: no operations
     meta = {
         "A": ("swin_window_attn", "resshift_tpu_torch/csrc/swin_window_attn.cu",
               "resshift_tpu/ops/swin_block_pallas.py:389 (K1) and :496 (K3)",
@@ -229,14 +380,17 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
               bound(c_bytes, c_ops, "bf16")),
         "D": ("vq_nearest", "resshift_tpu_torch/csrc/vq_nearest.cu",
               "resshift_tpu/ops/vq_pallas.py:70 (K6)", bound(d_bytes, d_ops, "f32")),
+        "E": ("shift_tokens", "resshift_tpu_torch/csrc/shift_tokens.cu",
+              "resshift_tpu/ops/shift_pallas.py:115 (K7)", bound(e_bytes, 0, "bf16")),
     }
     rows = []
     for key, (name, src, repl, (b_ms, b_by)) in meta.items():
         tk = timed[key]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                     "launches": launches[key], "max_abs_err": errs[key],
+                     "launches": launches["6"][key], "max_abs_err": errs[key],
                      "ms": tk[0], "plain_ms": tk[1], "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": tk[2] if len(tk) > 2 else None})
+                     "library_ms": tk[2] if len(tk) > 2 else None,
+                     "launches_by_phase": {ph: n[key] for ph, n in launches.items()}})
     return rows
 
 
@@ -251,7 +405,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from resshift_tpu_torch import _ext
-    from resshift_tpu_torch.ops import flash_attention as fa, swin_block as sb, vq
+    from resshift_tpu_torch.ops import flash_attention as fa, shift as shift_ops
+    from resshift_tpu_torch.ops import swin_block as sb, vq
     from resshift_tpu_torch.pipeline import ResShiftPipeline
 
     # the f32 comparisons below hold only with TF32 off for matmuls and convs
@@ -276,6 +431,8 @@ def main() -> int:
     # ---------------------------------------------------------------- 2
     print("phase 2: kernels against their plain versions", flush=True)
     errs, timed = check_kernels(dev)
+    timed["E"], errs["E"] = check_shift(dev), 0.0
+    timed["wide block"] = check_wide_block(dev)
 
     # ---------------------------------------------------------------- 3
     print("phase 3: realsr_v1, full width, bf16, 15 steps, batch 8 of 64x64", flush=True)
@@ -289,43 +446,82 @@ def main() -> int:
     pipe.load_state_dicts(**sds)
     lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(2)).to(dev) * 2 - 1
     latents = {}
-    orig_decode = pipe._decode
-
-    def capture(tag):
-        def _decode(vqm, z):
-            latents[tag] = z.float().clone()
-            return orig_decode(vqm, z)
-        return _decode
 
     all_kernels = {"A": sb.SWIN_WINDOW_ATTN, "B": sb.SWIN_MLP, "C": fa.FLASH_ATTN_1H,
-                   "D": vq.VQ_NEAREST}
+                   "D": vq.VQ_NEAREST, "E": shift_ops.SHIFT_TOKENS}
 
-    def run(tag):
-        pipe._decode = capture(tag)
-        gen = torch.Generator(device=dev).manual_seed(3)
-        out = pipe.sample(lq, gen)
-        torch.cuda.synchronize()
-        return out
+    def runner(p, x, seed):
+        """One sample call of pipeline `p` on `x`, the final latent kept
+        under `tag`."""
+        orig_decode = p._decode
 
-    for kern in all_kernels.values():
-        kern.reset()
+        def run(tag):
+            def _decode(vqm, z):
+                latents[tag] = z.float().clone()
+                return orig_decode(vqm, z)
+
+            p._decode = _decode
+            out = p.sample(x, torch.Generator(device=dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            return out
+        return run
+
+    def reset():
+        for kern in all_kernels.values():
+            kern.reset()
+
+    def timed_calls(run, n):
+        times = []
+        for _ in range(n):
+            t1 = time.perf_counter()
+            run("kernel")
+            times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times), times
+
+    def plain_path(run, c_plain):
+        """`run` with every kernel swapped for its plain version (here
+        only); returns its output."""
+        swaps = [(sb, "norm_attn_residual_stats", sb.norm_attn_residual_stats_plain),
+                 (sb, "shift_attn_residual_stats", sb.shift_attn_residual_stats_plain),
+                 (sb, "norm_mlp_residual_stats", sb.norm_mlp_residual_stats_plain),
+                 (sb, "mlp_unshift_residual_stats", sb.mlp_unshift_residual_stats_plain),
+                 (shift_ops, "shift_tokens", shift_ops.shift_tokens_plain),
+                 (fa, "flash_attention_1h", c_plain),
+                 (vq, "nearest_codebook_indices", vq.nearest_codebook_indices_plain)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        try:
+            reset()
+            out_plain = run("plain")
+            if any(kern.launches for kern in all_kernels.values()):
+                raise AssertionError("the plain path launched a kernel")
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        return out_plain
+
+    def latent_psnr(out, out_plain):
+        a, b = latents["kernel"].double(), latents["plain"].double()
+        peak = b.abs().max().item()
+        psnr = 10 * math.log10(peak ** 2 / max(((a - b) ** 2).mean().item(), 1e-30))
+        psnr_img = 10 * math.log10(4.0 / max(((out - out_plain) ** 2).mean().item(), 1e-30))
+        print(f"  final latent PSNR kernel vs plain: {psnr:.2f} dB (bar 35), "
+              f"image PSNR {psnr_img:.2f} dB", flush=True)
+        if not psnr >= 35.0:
+            raise AssertionError(f"latent PSNR {psnr:.2f} dB below 35")
+
+    run = runner(pipe, lq, 3)
+    reset()
     out = run("kernel")
-    launches = {k: kern.launches for k, kern in all_kernels.items()}
-    print(f"  launches in one sample call: {launches}, shifted A "
-          f"{sb.SWIN_WINDOW_ATTN.variants.get('shift', 0)}, unshifting B "
-          f"{sb.SWIN_MLP.variants.get('unshift', 0)}", flush=True)
-    want_launches = {"A": 270, "B": 270, "C": 2, "D": 1}
-    if launches != want_launches or sb.SWIN_WINDOW_ATTN.variants.get("shift") != 90 \
-            or sb.SWIN_MLP.variants.get("unshift") != 90:
-        raise AssertionError(f"launch counts {launches}, want {want_launches} (90 shifted)")
+    launches = {"3": read_launches(all_kernels, sb)}
+    print(f"  launches in one sample call: {launches['3']}", flush=True)
+    want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "E": 0, "fused shift": 90}
+    if launches["3"] != want_launches:
+        raise AssertionError(f"launch counts {launches['3']}, want {want_launches}")
     if out.shape != (BSZ, 256, 256, 3) or not torch.isfinite(out).all():
         raise AssertionError(f"bad output {tuple(out.shape)}")
-    times = []
-    for _ in range(3):
-        t1 = time.perf_counter()
-        run("kernel")
-        times.append((time.perf_counter() - t1) * 1e3)
-    ms = statistics.median(times)
+    ms, times = timed_calls(run, 3)
     mpx = BSZ * 256 * 256 / (ms / 1e3) / 1e6
     print(f"  sample: {ms:.1f} ms per call (median of {times}), {mpx:.3f} Mpx/s "
           f"on {card}", flush=True)
@@ -334,32 +530,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 4
     print("phase 4: the same sample through the plain versions", flush=True)
-    swaps = [(sb, "norm_attn_residual_stats", sb.norm_attn_residual_stats_plain),
-             (sb, "shift_attn_residual_stats", sb.shift_attn_residual_stats_plain),
-             (sb, "norm_mlp_residual_stats", sb.norm_mlp_residual_stats_plain),
-             (sb, "mlp_unshift_residual_stats", sb.mlp_unshift_residual_stats_plain),
-             (fa, "flash_attention_1h", fa.attention_plain),
-             (vq, "nearest_codebook_indices", vq.nearest_codebook_indices_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
-        for kern in all_kernels.values():
-            kern.reset()
-        out_plain = run("plain")
-        if any(kern.launches for kern in all_kernels.values()):
-            raise AssertionError("the plain path launched a kernel")
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    a, b = latents["kernel"].double(), latents["plain"].double()
-    peak = b.abs().max().item()
-    psnr = 10 * math.log10(peak ** 2 / max(((a - b) ** 2).mean().item(), 1e-30))
-    psnr_img = 10 * math.log10(4.0 / max(((out - out_plain) ** 2).mean().item(), 1e-30))
-    print(f"  final latent PSNR kernel vs plain: {psnr:.2f} dB (bar 35), "
-          f"image PSNR {psnr_img:.2f} dB", flush=True)
-    if not psnr >= 35.0:
-        raise AssertionError(f"latent PSNR {psnr:.2f} dB below 35")
+    latent_psnr(out, plain_path(run, fa.attention_plain))
 
     # ---------------------------------------------------------------- 5
     print("phase 5: a chopped 112x176 input (chop 64, stride 48, tile_bs 16)", flush=True)
@@ -371,6 +542,76 @@ def main() -> int:
         raise AssertionError(f"chopped output {tuple(out2.shape)} not finite or misshapen")
     print(f"  chopped output {tuple(out2.shape)}, finite, in [{out2.min().item():.3f}, "
           f"{out2.max().item():.3f}]", flush=True)
+    del pipe, run, out, out2
+
+    # ---------------------------------------------------------------- 6, 7
+    pipe3 = ResShiftPipeline("realsr_v3", dtype=torch.bfloat16)
+    pipe3.load_state_dicts(**sds)  # the same model as realsr_v1, the same weights
+    for phase, (lh, lw), seed in (("6", (176, 250), 8), ("7", (512, 512), 9)):
+        ph, pw = (-(-s // 64) * 64 for s in (lh, lw))  # padded to the padding offset
+        print(f"phase {phase}: realsr_v3, full width, bf16, 4 steps, one whole {lh}x{lw} "
+              f"photo, unchopped ({ph}x{pw} latent)", flush=True)
+        x = torch.rand(1, lh, lw, 3, generator=torch.Generator().manual_seed(seed)).to(dev)
+        run = runner(pipe3, x * 2 - 1, seed)
+        reset()
+        if phase == "6":
+            t1 = time.perf_counter()
+            out = run("kernel")
+            first_ms = (time.perf_counter() - t1) * 1e3
+        else:  # one call only, under the profiler: C's time at N = 262144 by name
+            out, first_ms = profile_sample(torch, lambda: run("kernel"))
+        launches[phase] = read_launches(all_kernels, sb)
+        want = expected_launches(pipe3.config, ph, pw)
+        print(f"  launches in one sample call: {launches[phase]} (derived: {want})", flush=True)
+        if launches[phase] != want or not all(launches[phase].values()):
+            raise AssertionError(f"launch counts {launches[phase]}, want {want}, none zero")
+        if out.shape != (1, 4 * lh, 4 * lw, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"bad output {tuple(out.shape)}")
+        mpx_out = 16 * lh * lw / 1e6
+        if phase == "6":
+            ms, times = timed_calls(run, 2)
+            print(f"  sample: {ms:.1f} ms per call (median of {times}; first call "
+                  f"{first_ms:.1f}), {mpx_out / (ms / 1e3):.4f} Mpx/s of {4 * lh}x{4 * lw} "
+                  f"output on {card}", flush=True)
+            profile_sample(torch, lambda: run("kernel"))
+            print("  the same sample through the plain versions (C in query chunks)",
+                  flush=True)
+            latent_psnr(out, plain_path(run, fa.chunked_attention_plain))
+        else:
+            print(f"  sample: {first_ms:.1f} ms for one call (the first at this shape, "
+                  f"profiled), {mpx_out / (first_ms / 1e3):.4f} Mpx/s of {4 * lh}x{4 * lw} "
+                  f"output on {card}", flush=True)
+        del run, out
+    del pipe3
+
+    # ---------------------------------------------------------------- 8
+    print("phase 8: python -m resshift_tpu_torch.cli infer on two PNGs (realsr_v1, bf16)",
+          flush=True)
+    from resshift_tpu_torch.utils.image_io import png_decode, png_encode
+
+    sizes = {"square": (64, 64), "wide": (100, 150)}  # the wide one pads to a 128x192 latent
+    rng = torch.Generator().manual_seed(10)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp, "lq"), Path(tmp, "sr")
+        src.mkdir()
+        for name, (h, w) in sizes.items():
+            im = torch.randint(0, 256, (h, w, 3), generator=rng, dtype=torch.uint8).numpy()
+            (src / f"{name}.png").write_bytes(png_encode(im))
+        cmd = [sys.executable, "-m", "resshift_tpu_torch.cli", "infer", "--task", "realsr",
+               "--version", "v1", "--seed", "0", "--in-path", str(src), "--out-path", str(dst)]
+        t1 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t1
+        if r.returncode != 0:
+            raise AssertionError(f"cli infer failed (rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
+        done = [ln for ln in r.stdout.splitlines() if ln.startswith("Done:")]
+        print(f"  {done[0] if done else 'no Done line'} ({cli_s:.1f} s with start-up)",
+              flush=True)
+        for name, (h, w) in sizes.items():
+            sr = png_decode((dst / f"{name}.png").read_bytes())
+            if sr.shape != (4 * h, 4 * w, 3) or sr.dtype.name != "uint8" or sr.std() == 0:
+                raise AssertionError(f"cli output {name}: {sr.shape} {sr.dtype}")
+            print(f"  {name}.png: {sr.shape[1]}x{sr.shape[0]} RGB, 8-bit", flush=True)
 
     print(json.dumps({"kernels": kernel_rows(launches, errs, timed)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

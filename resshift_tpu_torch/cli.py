@@ -1,0 +1,208 @@
+"""Command-line interface of the port: `python -m resshift_tpu_torch.cli`.
+
+  infer  restore a folder of images (or one image) with a task's sampler
+  eval   `infer` with the chop and batch of a README reproduce protocol,
+         then the PSNR/SSIM(Y) report
+
+The single-device part of the JAX package's `cli infer` / `cli eval`.
+Images are grouped by shape into batches of `--bs`; a reader thread reads
+ahead while the main thread launches the sampler, and a writer thread waits
+for each batch's result and writes its PNGs.  The noise comes from one
+`torch.Generator` on the device, seeded from `--seed`, which each batch
+advances in turn.  Everything runs on CUDA unless `--device cpu` is given.
+
+Checkpoints: `--ckpt` / `--vqgan-ckpt` name local copies of the released
+`.pth` files; the port never downloads.  Without `--ckpt` it warns, prints
+the release URLs and uses random weights seeded from `--seed`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import threading
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .config import CKPT_URLS, default_chop, load_yaml_config, task_config
+from .pipeline import ResShiftPipeline
+from .utils.image_io import from_model, imread, imwrite, list_images, to_model
+from .utils.io_pipeline import AsyncWriter, prefetch
+
+__all__ = ["EVAL_PROTOCOLS", "make_parser", "main", "report_metrics"]
+
+# the README reproduce protocols: chop size and stride in LQ px, batch size
+EVAL_PROTOCOLS = {
+    "imagenet": dict(chop_size=64, chop_stride=64, bs=64),
+    "realset": dict(chop_size=512, chop_stride=448, bs=1),
+}
+
+
+def _task_name(args) -> str:
+    return args.task if args.task != "realsr" else f"realsr_{args.version}"
+
+
+def _config(args) -> dict:
+    return load_yaml_config(args.config) if args.config else task_config(_task_name(args))
+
+
+def _pipeline(args, cfg: dict) -> ResShiftPipeline:
+    pipe = ResShiftPipeline(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                            device=args.device)
+    if args.ckpt:
+        pipe.load_torch_checkpoints(args.ckpt, args.vqgan_ckpt)
+    else:
+        unet_url, vq_url = CKPT_URLS.get(_task_name(args), ("?", "?"))
+        print("WARNING: no --ckpt given; using RANDOM weights (demo/benchmark only).\n"
+              f"Download the released checkpoints by hand:\n  unet:  {unet_url}\n"
+              f"  vqgan: {vq_url}", file=sys.stderr)
+        pipe.init_params(args.seed)
+    return pipe
+
+
+def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
+    """Restore every image under --in-path into --out-path as PNG; returns
+    the input files and the wall time."""
+    in_path, out_path = Path(args.in_path), Path(args.out_path)
+    out_path.mkdir(parents=True, exist_ok=True)
+    files = list_images(in_path) if in_path.is_dir() else [in_path]
+    print(f"Found {len(files)} image(s) in {in_path}; sampling on {pipe.device}", flush=True)
+    generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
+    bs = max(1, args.bs)
+
+    def batches():
+        pend: dict[tuple, list] = {}
+        for f in files:
+            im = imread(f)
+            pend.setdefault(im.shape, []).append((f, im))
+            if len(pend[im.shape]) == bs:
+                yield pend.pop(im.shape)
+        yield from pend.values()
+
+    state = {"px": 0, "done": 0}
+    lock = threading.Lock()
+    t_start = time.perf_counter()
+    with AsyncWriter(depth=2) as writer:
+        for group in prefetch(batches(), depth=2):
+            lq = torch.from_numpy(np.concatenate([to_model(im) for _, im in group], axis=0))
+            sr = pipe.sample(lq, generator, noise_repeat=args.noise_repeat,
+                             tile_bs=args.chop_bs)
+
+            def write_job(pool, group=group, sr=sr):
+                arr = sr.cpu().numpy()  # waits for the device to finish this batch
+                list(pool.map(lambda jf: imwrite(from_model(arr[jf[0]:jf[0] + 1])[0],
+                                                 out_path / f"{jf[1][0].stem}.png"),
+                              enumerate(group)))
+                with lock:
+                    state["px"] += arr.shape[0] * arr.shape[1] * arr.shape[2]
+                    state["done"] += len(group)
+                    done = state["done"]
+                print(f"[{done}/{len(files)}] batch of {len(group)}: {arr.shape[2]}x{arr.shape[1]} "
+                      f"({time.perf_counter() - t_start:.2f}s elapsed)", flush=True)
+
+            writer.submit(write_job)
+    seconds = time.perf_counter() - t_start
+    print(f"Done: {state['px'] / max(seconds, 1e-9) / 1e6:.3f} Mpx/s wall (compute + "
+          f"pipelined I/O) -> {out_path}", flush=True)
+    return files, seconds
+
+
+def report_metrics(files, sr_dir: Path, gt_dir: Path, extra: dict | None = None):
+    """PSNR(Y) / SSIM(Y) of the saved outputs against the same-named files
+    under `gt_dir`; also writes `sr_dir/metrics.json` (with `extra` merged
+    in).  Returns (psnr, ssim), or None when no output has a GT."""
+    from .ops.metrics import batch_psnr, batch_ssim
+
+    gts = {f.stem: f for f in list_images(gt_dir)}
+    psnr = ssim = 0.0
+    n = 0
+    for f in files:
+        out = sr_dir / f"{f.stem}.png"
+        if f.stem not in gts or not out.exists():
+            continue
+        sr, gt = imread(out)[None], imread(gts[f.stem])[None]
+        psnr += batch_psnr(sr, gt, ycbcr=True)
+        ssim += batch_ssim(sr, gt, ycbcr=True)
+        n += 1
+    if not n:
+        return None
+    print(f"PSNR(Y): {psnr / n:.2f} dB  SSIM(Y): {ssim / n:.4f}  ({n} images)", flush=True)
+    record = {"n": n, "psnr_y": float(psnr / n), "ssim_y": float(ssim / n), **(extra or {})}
+    (sr_dir / "metrics.json").write_text(json.dumps(record, indent=2))
+    return psnr / n, ssim / n
+
+
+def cmd_infer(args) -> None:
+    cfg = _config(args)
+    if args.chop_size:
+        cs, st = default_chop(args.chop_size, cfg["sf"])
+        cfg["inference"]["chop_size"] = cs
+        cfg["inference"]["chop_stride"] = (args.chop_stride * (4 // cfg["sf"])
+                                           if args.chop_stride else st)
+    files, _ = _infer(_pipeline(args, cfg), args)
+    if args.gt_path:
+        report_metrics(files, Path(args.out_path), Path(args.gt_path))
+
+
+def cmd_eval(args) -> None:
+    """`infer` with a protocol's chop, stride and batch (no rescale), then
+    the metric report."""
+    proto = EVAL_PROTOCOLS[args.protocol]
+    cfg = _config(args)
+    cfg["inference"]["chop_size"] = proto["chop_size"]
+    cfg["inference"]["chop_stride"] = proto["chop_stride"]
+    args.bs, args.noise_repeat = proto["bs"], False
+    files, seconds = _infer(_pipeline(args, cfg), args)
+    print(f"Protocol {args.protocol}: {len(files)} images in {seconds:.1f}s", flush=True)
+    if args.gt_path:
+        report_metrics(files, Path(args.out_path), Path(args.gt_path),
+                       extra={"protocol": args.protocol, "seconds": round(seconds, 1)})
+
+
+def make_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="resshift_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--task", default="realsr", choices=["realsr", "bicsr"])
+        sp.add_argument("--version", default="v3", choices=["v1", "v2", "v3"])
+        sp.add_argument("--config", default=None, help="custom YAML config")
+        sp.add_argument("--ckpt", default=None, help="released denoiser .pth")
+        sp.add_argument("--vqgan-ckpt", default=None, help="released VQGAN .pth")
+        sp.add_argument("--seed", type=int, default=12345)
+        sp.add_argument("--bf16", action="store_true", default=True)
+        sp.add_argument("--fp32", dest="bf16", action="store_false")
+        sp.add_argument("--device", default="cuda",
+                        help="torch device; 'cpu' runs the plain versions of the kernels")
+        sp.add_argument("--in-path", required=True)
+        sp.add_argument("--out-path", required=True)
+        sp.add_argument("--gt-path", default=None, help="GT folder for the PSNR/SSIM report")
+        sp.add_argument("--chop-bs", type=int, default=1, help="tiles per sampler call")
+
+    pi = sub.add_parser("infer", help="restore a folder or a single image")
+    common(pi)
+    pi.add_argument("--chop-size", type=int, default=None, choices=[512, 256, 64])
+    pi.add_argument("--chop-stride", type=int, default=None)
+    pi.add_argument("--bs", type=int, default=1)
+    pi.add_argument("--noise-repeat", action="store_true")
+    pi.set_defaults(fn=cmd_infer)
+
+    pe = sub.add_parser("eval", help="README reproduce protocols "
+                        "(imagenet: chop 64 / stride 64 / bs 64; realset: chop 512 / 448 / 1)")
+    common(pe)
+    pe.add_argument("--protocol", required=True, choices=sorted(EVAL_PROTOCOLS))
+    pe.set_defaults(fn=cmd_eval)
+    return p
+
+
+def main(argv=None) -> None:
+    args = make_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

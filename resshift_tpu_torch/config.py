@@ -13,7 +13,7 @@ import re
 from pathlib import Path
 from typing import Any
 
-__all__ = ["task_config", "load_yaml_config", "TASKS"]
+__all__ = ["task_config", "load_yaml_config", "default_chop", "TASKS", "CKPT_URLS"]
 
 _F4_DDCONFIG = dict(
     double_z=False, z_channels=3, resolution=256, in_channels=3, out_ch=3,
@@ -101,12 +101,37 @@ TASKS: dict[str, dict] = {
 }
 TASKS["realsr_v2"] = copy.deepcopy(TASKS["realsr_v1"])
 
+# the released checkpoints (unet, vqgan) of each task, for a download by
+# hand: the port never fetches them
+_REL = "https://github.com/zsyOAOA/ResShift/releases/download/v2.0"
+CKPT_URLS = {
+    "realsr_v1": (f"{_REL}/resshift_realsrx4_s15_v1.pth", f"{_REL}/autoencoder_vq_f4.pth"),
+    "realsr_v2": (f"{_REL}/resshift_realsrx4_s15_v2.pth", f"{_REL}/autoencoder_vq_f4.pth"),
+    "realsr_v3": (f"{_REL}/resshift_realsrx4_s4_v3.pth", f"{_REL}/autoencoder_vq_f4.pth"),
+    "bicsr": (f"{_REL}/resshift_bicsrx4_s4.pth", f"{_REL}/autoencoder_vq_f4.pth"),
+    "inpaint_imagenet": (f"{_REL}/resshift_inpainting_imagenet_s4.pth",
+                         f"{_REL}/autoencoder_vq_f4.pth"),
+    "inpaint_face": (f"{_REL}/resshift_inpainting_face_s4.pth",
+                     f"{_REL}/celeba256_vq_f4_dim3_face.pth"),
+    "faceir": (f"{_REL}/resshift_faceir_s4.pth", f"{_REL}/ffhq512_vq_f8_dim8_face.pth"),
+}
+
 
 def task_config(name: str) -> dict:
     """Deep copy of a built-in task config (e.g. 'realsr_v1')."""
     if name not in TASKS:
         raise KeyError(f"unknown task '{name}'; available: {sorted(TASKS)}")
     return copy.deepcopy(TASKS[name])
+
+
+def default_chop(chop_size: int, scale: int) -> tuple[int, int]:
+    """The reference's chop defaults: (chop_size, chop_stride) for a chop
+    of 512, 256 or 64 LQ px, after the (4 // scale) rescale."""
+    table = {512: 448, 256: 224, 64: 48}
+    if chop_size not in table:
+        raise ValueError("chop size must be one of 512/256/64")
+    m = 4 // scale
+    return chop_size * m, table[chop_size] * m
 
 
 _INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")

@@ -15,7 +15,7 @@ from typing import Any, Iterable, Mapping
 
 import numpy as np
 
-__all__ = ["from_flax"]
+__all__ = ["from_flax", "load_torch_state_dict"]
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple[str, ...], Any]:
@@ -189,3 +189,23 @@ def from_flax(params: Mapping, which: str, **cfg) -> dict[str, np.ndarray]:
     else:
         raise ValueError(f"which must be 'unet' or 'vqgan', not {which!r}")
     return sd
+
+
+def _strip_prefixes(sd: Mapping[str, Any]) -> dict[str, Any]:
+    out = {}
+    for k, v in sd.items():
+        for p in ("module.", "_orig_mod."):
+            if k.startswith(p):
+                k = k[len(p):]
+        out[k] = v
+    return out
+
+
+def load_torch_state_dict(path: str) -> dict[str, Any]:
+    """A reference-layout state_dict from a `.pth` file, on the CPU."""
+    import torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return _strip_prefixes(obj)

@@ -6,8 +6,11 @@
   * The window size and shift of a block follow the build-time resolution;
     the shifted-window mask follows the runtime map.
   * Norms are GroupNorm32 folded to a per-image affine; each block runs as
-    the two fused halves of ops/swin_block.py, with the shift absorbed into
-    the attention half's read and the MLP half's write.
+    the two fused halves of ops/swin_block.py.  A shifted block absorbs the
+    shift into the attention half's read and the MLP half's write where
+    `shift_fuse_fits` holds, as the JAX package does; on wider maps the
+    token permutation of ops/shift.py runs before and after the attention
+    half.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..ops import shift as shift_ops
 from ..ops import swin_block as sb
 from ..ops.swin_block import shift_permutation
 from .layers import Conv2d, GroupNorm32, Linear
@@ -148,13 +152,17 @@ class SwinTransformerBlock(nn.Module):
         # a token permutation keeps per-image statistics, so the affines hold
         # in either layout
         wa, ba = sb.fold_stats(stats, self.norm1.weight, self.norm1.bias, t)
-        if shift:
+        if shift and sb.shift_fuse_fits(w, ws):
             y, ys, yq = sb.shift_attn_residual_stats(xt, wa, ba, wqkv, bqkv, wproj, bproj,
                                                      bias_mask, nh, n, h, w, ws, shift)
             wm, bm = sb.fold_stats((ys, yq), self.norm2.weight, self.norm2.bias, t)
             return sb.mlp_unshift_residual_stats(y, wm, bm, w1, b1, w2, b2, h, w, ws, shift)
-        y, ys, yq = sb.norm_attn_residual_stats(xt, wa, ba, wqkv, bqkv, wproj, bproj,
+        # wider shifted maps: kernel E permutes around the unshifted halves
+        xs = shift_ops.shift_tokens(xt, h, w, ws, shift) if shift else xt
+        y, ys, yq = sb.norm_attn_residual_stats(xs, wa, ba, wqkv, bqkv, wproj, bproj,
                                                 bias_mask, nh, n)
+        if shift:
+            y = shift_ops.shift_tokens(y, h, w, ws, shift, inverse=True)
         wm, bm = sb.fold_stats((ys, yq), self.norm2.weight, self.norm2.bias, t)
         return sb.norm_mlp_residual_stats(y, wm, bm, w1, b1, w2, b2)
 

@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from .. import _ext
 from .._ext import I, P
 
-__all__ = ["token_stats", "fold_stats", "gn_fold", "shift_permutation",
+__all__ = ["token_stats", "fold_stats", "gn_fold", "shift_permutation", "shift_fuse_fits",
            "norm_attn_residual_plain", "norm_mlp_residual_plain",
            "norm_attn_residual_stats_plain", "shift_attn_residual_stats_plain",
            "norm_mlp_residual_stats_plain", "mlp_unshift_residual_stats_plain",
@@ -86,6 +86,16 @@ def shift_permutation(h: int, w: int, ws: int, shift: int) -> tuple[np.ndarray, 
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size)
     return perm, inv
+
+
+def shift_fuse_fits(wd: int, ws: int) -> bool:
+    """Whether a shifted block at a map `wd` tokens wide absorbs the shift
+    into kernels A and B (rows of at most 1024 tokens); wider maps take
+    kernel E (ops/shift.py) around the unshifted A and B.  This mirrors the
+    JAX package's dispatch (`swin_block_pallas.shift_fuse_fits`, a TPU VMEM
+    limit), so that both packages take the same route; it is not an H100
+    limit: A and B read through the roll at any width."""
+    return wd * ws <= 1024
 
 
 def _take(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:

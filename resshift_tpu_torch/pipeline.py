@@ -122,6 +122,25 @@ class ResShiftPipeline:
                 mod.load_state_dict({k: torch.as_tensor(v) for k, v in sd.items()})
         self._compute = None
 
+    def load_torch_checkpoints(self, unet_path: str, vqgan_path: str | None = None) -> None:
+        """The released `.pth` files.  As the JAX package's converter, this
+        reads the keys the models have and ignores the rest (derived buffers
+        such as `relative_position_index` and `attn_mask`, training-only
+        entries); a key the models need and the file lacks raises."""
+        from .convert import load_torch_state_dict
+
+        if self.vq is not None and vqgan_path is None:
+            raise ValueError("this task has a VQGAN: give its checkpoint too")
+        for mod, path in ((self.unet, unet_path), (self.vq, vqgan_path)):
+            if mod is None:
+                continue
+            sd = load_torch_state_dict(path)
+            missing = [k for k in mod.state_dict() if k not in sd]
+            if missing:
+                raise KeyError(f"{path} lacks {len(missing)} keys, e.g. {missing[:3]}")
+            mod.load_state_dict({k: torch.as_tensor(sd[k]) for k in mod.state_dict()})
+        self._compute = None
+
     def _compute_params(self) -> tuple[nn.Module, nn.Module | None]:
         """Copies of the models with every conv and linear weight cast to the
         compute dtype once, except the UNet head conv (`out.2`), which runs

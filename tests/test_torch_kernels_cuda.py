@@ -1,6 +1,6 @@
-"""The port's four CUDA kernels against their plain PyTorch versions on the
+"""The port's CUDA kernels against their plain PyTorch versions on the
 card, at shapes off the main path (small windows, ragged tiles, other
-widths), in float32 and bfloat16.
+widths, unaligned views), in float32 and bfloat16.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Where there is a card, run
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -14,6 +14,7 @@ import torch
 
 from resshift_tpu_torch.models.swin import shifted_window_mask
 from resshift_tpu_torch.ops import flash_attention as fa
+from resshift_tpu_torch.ops import shift
 from resshift_tpu_torch.ops import swin_block as sb
 from resshift_tpu_torch.ops import vq
 
@@ -90,7 +91,23 @@ def test_vq_nearest_ragged_rows(gen, d):
                                vq.nearest_codebook_indices_plain(z, emb), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c", [(2, 16, 24, 4), (3, 8, 40, 6), (1, 24, 32, 192)])
+def test_shift_tokens_exact(gen, dt, b, h, w, c):
+    x = torch.randn(b, h * w, c, generator=gen, device="cuda").to(dt)
+    # a view one element off the allocation: not 16-byte aligned
+    xv = torch.randn(x.numel() + 1, generator=gen, device="cuda").to(dt)[1:].view_as(x)
+    for t in (x, xv):
+        for inverse in (False, True):
+            assert torch.equal(shift.shift_tokens(t, h, w, 8, 4, inverse),
+                               shift.shift_tokens_plain(t, h, w, 8, 4, inverse))
+
+
 def test_wrappers_raise_on_unsupported_shapes(gen):
     q = torch.zeros(1, 64, 256, device="cuda")
     with pytest.raises(ValueError):
         fa.flash_attention_1h(q, q, q)
+    with pytest.raises(ValueError):
+        shift.shift_tokens(torch.zeros(1, 60, 8, device="cuda"), 6, 10, 8, 4)
+    with pytest.raises(TypeError):
+        shift.shift_tokens(torch.zeros(1, 64, 8, device="cuda", dtype=torch.float16), 8, 8, 8, 4)

@@ -40,7 +40,7 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def small_config(steps=3):
+def small_config(steps=3, min_noise_level=0.04):
     """The realsr structure at small width: window 4, lq 16, f4 VQGAN."""
     return dict(
         task="realsr", sf=4,
@@ -50,7 +50,7 @@ def small_config(steps=3):
                    use_scale_shift_norm=True, resblock_updown=False, swin_depth=2,
                    swin_embed_dim=32, window_size=4, mlp_ratio=2, cond_lq=True,
                    cond_mask=False, lq_size=16),
-        diffusion=dict(schedule_name="exponential", steps=steps, min_noise_level=0.04,
+        diffusion=dict(schedule_name="exponential", steps=steps, min_noise_level=min_noise_level,
                        etas_end=0.99, kappa=2.0, power=0.3, predict_type="xstart",
                        timestep_respacing=None, normalize_input=True, latent_flag=True,
                        scale_factor=1.0, sf=4),
@@ -151,9 +151,10 @@ def _random_state_dict(module, g):
     return sd
 
 
-@pytest.fixture(scope="module")
-def pipelines():
-    cfg = small_config()
+@functools.lru_cache(maxsize=None)
+def _pipelines(steps=3, min_noise_level=0.04):
+    """A JAX and a port pipeline with the same random weights."""
+    cfg = small_config(steps, min_noise_level)
     tp = ResShiftPipeline(cfg, dtype=torch.float32, device="cpu")
     g = torch.Generator().manual_seed(0)
     sds = {"unet": _random_state_dict(tp.unet, g), "vqgan": _random_state_dict(tp.vq, g)}
@@ -178,6 +179,11 @@ def pipelines():
     return jp, params, tp
 
 
+@pytest.fixture(scope="module")
+def pipelines():
+    return _pipelines()
+
+
 def _jax_tile(jp, params, lq, noise, step_noise):
     """JAX `_encode` -> `rs.sample_loop(noise=, step_noise=)` -> `_decode` -> clip."""
     z_y = jp._encode(params["vqgan"], lq, up_sample=True)
@@ -190,8 +196,8 @@ def _jax_tile(jp, params, lq, noise, step_noise):
     return jnp.clip(jp._decode(params["vqgan"], z0), -1.0, 1.0)
 
 
-def _noise(rng, b, steps=3, lat=16):
-    shape = (b, lat, lat, 3)
+def _noise(rng, b, steps=3, lat=16, lat_w=None):
+    shape = (b, lat, lat_w or lat, 3)
     return (rng.standard_normal(shape).astype(np.float32),
             rng.standard_normal((steps,) + shape).astype(np.float32))
 
@@ -226,6 +232,45 @@ def test_padded_chopped_sample_matches_jax(pipelines, monkeypatch):
         step_noise=torch.from_numpy(step_noise)), raising=False)
     got = tp.sample(torch.from_numpy(lq), chop_size=16, chop_stride=12, tile_bs=9)
     assert got.shape == (1, 80, 112, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3, atol=5e-3)
+
+
+@pytest.mark.parametrize("steps,min_noise_level", [(3, 0.04), (4, 0.2)])
+def test_unchopped_wide_sample_matches_jax(monkeypatch, steps, min_noise_level):
+    """A whole 16x40 LQ photo, unchopped: reflect-pad to 16x48, one tile whose
+    16x48 latent (and 8x24 second level) takes the token-permutation route
+    of the shifted Swin blocks under a threshold patched alike in both
+    packages, crop to 64x160.  Also the realsr_v3 schedule (4 steps,
+    min_noise_level 0.2)."""
+    from resshift_tpu.ops import swin_block_pallas as jsb
+    from resshift_tpu_torch.ops import shift as tshift
+    from resshift_tpu_torch.ops import swin_block as tsb
+
+    def gate(wd, ws):
+        return wd * ws <= 64  # the 16-wide maps of the other tests still fuse
+
+    monkeypatch.setattr(jsb, "shift_fuse_fits", gate)
+    monkeypatch.setattr(tsb, "shift_fuse_fits", gate)
+    jp, params, tp = _pipelines(steps, min_noise_level)
+    rng = np.random.default_rng(3)
+    lq = rng.uniform(-1, 1, (1, 16, 40, 3)).astype(np.float32)
+    noise, step_noise = _noise(rng, 1, steps, 16, 48)
+
+    monkeypatch.setattr(jp, "_sample_tile", lambda p, tl, key, mask=None, noise_repeat=False:
+                        _jax_tile(jp, p, tl, noise, step_noise), raising=False)
+    want = jax.jit(lambda p, x: jp._sample_padded(p, x, jax.random.PRNGKey(0), None, False,
+                                                  64, 48, 1))(params, lq)
+    orig = tp._sample_tile
+    monkeypatch.setattr(tp, "_sample_tile", lambda tl, gen, mask=None, noise_repeat=False: orig(
+        tl, gen, mask, noise_repeat, noise=torch.from_numpy(noise),
+        step_noise=torch.from_numpy(step_noise)), raising=False)
+    widths = []
+    orig_shift = tshift.shift_tokens
+    monkeypatch.setattr(tshift, "shift_tokens", lambda *a, **k: widths.append(a[2]) or
+                        orig_shift(*a, **k))
+    got = tp.sample(torch.from_numpy(lq), chop_size=64, chop_stride=48)
+    assert got.shape == (1, 64, 160, 3)
+    assert sorted(set(widths)) == [24, 48] and len(widths) == steps * 5 * 2
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=5e-3, atol=5e-3)
 
 
