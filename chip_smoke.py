@@ -25,6 +25,21 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      launch counts and time;
   8. `python -m resshift_tpu_torch.cli infer` in a subprocess on a folder of
      two PNGs written with the port's own codec (realsr_v1, bf16);
+  9. faceir at full width (bf16, 4 steps, one 512x512 face, f8 VQGAN),
+     pinned through the config keys `model.use_pallas: true` and
+     `autoencoder.use_pallas: true`, so that kernel F runs in the UNet head
+     and the decoder tail: launch counts derived from the config, >= 35 dB
+     latent and image PSNR against the unpinned call through the plain
+     versions, and the same call unpinned, timed;
+ 10. inpaint_imagenet, one 256x256 image with a seeded rectangular mask,
+     checked in the same way;
+ 11. `cli infer` in subprocesses: inpaint_face with --mask-path (outside the
+     mask the output equals the input exactly), faceir, realsr --scale 2
+     (one LQ side padding to an odd multiple of 64, which the pipeline pads
+     on to a multiple of 128);
+phase 2 also holds kernel F (gn_silu_conv3x3) against its plain version at
+the UNet head's and the decoder tails' shapes, with the cuDNN composition
+timed beside it;
 then print the `kernels` JSON line and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
@@ -45,6 +60,11 @@ ROOT = Path(__file__).resolve().parent
 NH, N, C, HIDDEN, BSZ = 6, 64, 192, 768, 8
 # latents of whole photos: 176x250 LQ padded to 192x256, and 512x512 LQ
 WIDE_LATENTS = [(192, 256), (512, 512)]
+# kernel F's shapes (name, B, C, H, W, co, dtype): the UNet head at a tile
+# batch of 8 and at faceir's one face, the f4 decoder tail at a tile batch
+# of 8, the f8 decoder tail of one 512x512 face
+TAIL_SHAPES = [("UNet head", 8, 160, 64, 64, 3, "f32"), ("faceir head", 1, 160, 64, 64, 8, "f32"),
+               ("f4 tail", 8, 128, 256, 256, 3, "bf16"), ("f8 tail", 1, 64, 512, 512, 3, "bf16")]
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 PEAK_BYTES = 3.35e12
@@ -212,25 +232,30 @@ def check_kernels(dev):
           flush=True)
     del q, k, v
 
-    # D at the decode: 8 x 64^2 latent rows against the 8192 x 3 codebook
-    z, emb = rn(bsz * 4096, 3), 0.5 * rn(8192, 3)
-    got, want = vq.nearest_codebook_indices(z, emb), vq.nearest_codebook_indices_plain(z, emb)
-    differ = (got != want).nonzero().flatten()
-    errs["D"] = 0.0  # the largest f64 distance gap between the two choices
-    if differ.numel():
-        zz, e64 = z[differ].double(), emb.double()
-        da = ((zz - e64[got[differ]]) ** 2).sum(1)
-        db = ((zz - e64[want[differ]]) ** 2).sum(1)
-        scale = (zz ** 2).sum(1) + torch.maximum((e64[got[differ]] ** 2).sum(1),
-                                                 (e64[want[differ]] ** 2).sum(1))
-        if not bool(((da - db).abs() <= 1e-6 * scale).all()):
-            raise AssertionError("D: indices differ beyond near-ties")
-        errs["D"] = (da - db).abs().max().item()
-    print(f"  D f32 (32768 x 8192 x 3): {differ.numel()} of {z.shape[0]} indices differ, "
-          f"all at near-ties (1e-6 relative; largest distance gap {errs['D']:.3e})", flush=True)
-    timed["D"] = (cuda_ms(torch, lambda: vq.nearest_codebook_indices(z, emb)),
-                  cuda_ms(torch, lambda: vq.nearest_codebook_indices_plain(z, emb)))
-    print(f"  D ms {timed['D'][0]:.4f}, plain ms {timed['D'][1]:.4f}", flush=True)
+    # D at the decodes: 8 x 64^2 latent rows against the f4 8192 x 3 codebook,
+    # and one face's 64^2 rows against the f8 4096 x 8 one (147 KB of shared
+    # memory)
+    for key, m_rows, k, d in (("D", bsz * 4096, 8192, 3), ("D f8", 4096, 4096, 8)):
+        z, emb = rn(m_rows, d), 0.5 * rn(k, d)
+        got = vq.nearest_codebook_indices(z, emb)
+        want = vq.nearest_codebook_indices_plain(z, emb)
+        differ = (got != want).nonzero().flatten()
+        errs[key] = 0.0  # the largest f64 distance gap between the two choices
+        if differ.numel():
+            zz, e64 = z[differ].double(), emb.double()
+            da = ((zz - e64[got[differ]]) ** 2).sum(1)
+            db = ((zz - e64[want[differ]]) ** 2).sum(1)
+            scale = (zz ** 2).sum(1) + torch.maximum((e64[got[differ]] ** 2).sum(1),
+                                                     (e64[want[differ]] ** 2).sum(1))
+            if not bool(((da - db).abs() <= 1e-6 * scale).all()):
+                raise AssertionError(f"{key}: indices differ beyond near-ties")
+            errs[key] = (da - db).abs().max().item()
+        print(f"  {key} f32 ({m_rows} x {k} x {d}): {differ.numel()} of {m_rows} indices "
+              f"differ, all at near-ties (1e-6 relative; largest distance gap "
+              f"{errs[key]:.3e})", flush=True)
+        timed[key] = (cuda_ms(torch, lambda: vq.nearest_codebook_indices(z, emb)),
+                      cuda_ms(torch, lambda: vq.nearest_codebook_indices_plain(z, emb)))
+        print(f"  {key} ms {timed[key][0]:.4f}, plain ms {timed[key][1]:.4f}", flush=True)
     return errs, timed
 
 
@@ -306,7 +331,51 @@ def check_wide_block(dev):
     return ms
 
 
-def expected_launches(cfg: dict, lat_h: int, lat_w: int) -> dict:
+def check_tail(dev):
+    """Phase 2, kernel F's wrapper pinned `use_pallas=True` against the plain
+    version (the GroupNorm folded the same way) at TAIL_SHAPES: f32 within
+    2e-4 of the largest value (summation order), bf16 within phase 2's
+    band; times both and the cuDNN composition (F.group_norm, F.silu,
+    F.conv2d with the bias), each from x and the GroupNorm's parameters.
+    Returns (max bf16 error, {shape name: (ms, plain ms, cuDNN ms, bound ms,
+    bound by)})."""
+    import torch
+    import torch.nn.functional as F
+
+    from resshift_tpu_torch.ops import tail
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    err, timed = 0.0, {}
+    for name, b, c, h, w, co, tag in TAIL_SHAPES:
+        dt = torch.float32 if tag == "f32" else torch.bfloat16
+        eps = 1e-5 if "head" in name else 1e-6
+        x = (1.5 * rn(b, c, h, w) + 0.3).to(dt)
+        scale, gbias = 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c)
+        weight, bias = (rn(co, c, 3, 3) / (9 * c) ** 0.5).to(dt), (0.1 * rn(co)).to(dt)
+        fk = lambda: tail.gn_silu_conv3x3(x, scale, gbias, weight, bias, eps=eps,
+                                          use_pallas=True)
+        fp = lambda: tail.gn_silu_conv3x3_plain(
+            x, *tail.group_norm_fold(x, scale, gbias, eps=eps), weight, bias)
+        lib = lambda: F.conv2d(F.silu(F.group_norm(x, 32, scale.to(dt), gbias.to(dt), eps)),
+                               weight, bias, padding=1)
+        rel, atol = (2e-4, 1e-5) if tag == "f32" else (2 ** -6, 1e-3)
+        e = check(f"F {tag} {name} {(b, c, h, w)} -> {co}", fk(), fp(), rel, atol)
+        if tag == "bf16":
+            err = max(err, e)
+        # x read once, y written once, the taps and the GroupNorm's (C,)
+        # parameters; the conv's 9 * co multiply-adds per input element and
+        # about 9 operations for its statistics, affine and SiLU
+        nbytes = b * (c + co) * h * w * x.element_size() + c * 9 * co * x.element_size() + 8 * c
+        bms, bby = bound(nbytes, b * h * w * c * (18 * co + 9), tag)
+        t = (cuda_ms(torch, fk), cuda_ms(torch, fp), cuda_ms(torch, lib))
+        timed[name] = t + (bms, bby)
+        print(f"  F {name}: ms {t[0]:.4f}, plain ms {t[1]:.4f}, cuDNN composition ms "
+              f"{t[2]:.4f}, bound ms {bms:.4f} ({bby})", flush=True)
+    return err, timed
+
+
+def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = False) -> dict:
     """Kernel launches of one sample call at one (lat_h, lat_w) latent tile,
     from the UNet's structure: a BasicLayer of `swin_depth` blocks after the
     first ResBlock of each level in `attention_resolutions` and in the
@@ -314,7 +383,8 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int) -> dict:
     window; a shifted block on a map wider than 1024 tokens per window-row
     (the JAX package's dispatch) launches E twice around unshifted A and B,
     else the shift-absorbing A and B.  C runs in the encoder and decoder
-    middle, D once."""
+    middle, D once; F once per step in the UNet head and once in the
+    decoder tail where both are pinned (`tail_pinned`)."""
     m = cfg["model"]
     win, depth, size = m["window_size"], m["swin_depth"], m["image_size"]
     mult, attn = m["channel_mult"], m["attention_resolutions"]
@@ -339,7 +409,7 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int) -> dict:
             else:
                 n["E"] += 2 * shifted
     want = {k: v * steps for k, v in n.items()}
-    want.update(C=2, D=1)
+    want.update(C=2, D=1, F=steps + 1 if tail_pinned else 0)
     return want
 
 
@@ -352,11 +422,12 @@ def read_launches(kernels: dict, sb) -> dict:
 
 
 def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
-    """The `kernels` report: each kernel's launches in this slice's main
-    path (the whole photo of phase 6; every sample phase under
-    `launches_by_phase`), its bf16 error and times from phase 2, and its
-    bound at the timed shapes (bytes: each input read once, each output
-    written once)."""
+    """The `kernels` report: each kernel's launches in its main path (the
+    whole photo of phase 6 for A-E, the face of phase 9 for F; every sample
+    phase under `launches_by_phase`), its bf16 error and times from phase 2,
+    and its bound at the timed shapes (bytes: each input read once, each
+    output written once); F at the f8 decoder tail, with every timed shape
+    under `by_shape`."""
     nh, n, c, hidden, bsz = NH, N, C, HIDDEN, BSZ
     s2 = 2  # bf16 bytes
     t, nw = 4096, 4096 // n
@@ -383,14 +454,19 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
         "E": ("shift_tokens", "resshift_tpu_torch/csrc/shift_tokens.cu",
               "resshift_tpu/ops/shift_pallas.py:115 (K7)", bound(e_bytes, 0, "bf16")),
     }
+    tails = timed["F"]
+    meta["F"] = ("gn_silu_conv3x3", "resshift_tpu_torch/csrc/gn_silu_conv3x3.cu",
+                 "resshift_tpu/ops/tail_pallas.py:173 (K8)", tails["f8 tail"][3:5])
     rows = []
     for key, (name, src, repl, (b_ms, b_by)) in meta.items():
-        tk = timed[key]
+        tk = tails["f8 tail"] if key == "F" else timed[key]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                     "launches": launches["6"][key], "max_abs_err": errs[key],
-                     "ms": tk[0], "plain_ms": tk[1], "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": tk[2] if len(tk) > 2 else None,
+                     "launches": launches["9" if key == "F" else "6"][key],
+                     "max_abs_err": errs[key], "ms": tk[0], "plain_ms": tk[1], "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": tk[2] if len(tk) > 2 else None,
                      "launches_by_phase": {ph: n[key] for ph, n in launches.items()}})
+    rows[-1]["by_shape"] = {shape: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by"), t)) for shape, t in tails.items()}
     return rows
 
 
@@ -406,7 +482,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from resshift_tpu_torch import _ext
     from resshift_tpu_torch.ops import flash_attention as fa, shift as shift_ops
-    from resshift_tpu_torch.ops import swin_block as sb, vq
+    from resshift_tpu_torch.ops import swin_block as sb, tail, vq
     from resshift_tpu_torch.pipeline import ResShiftPipeline
 
     # the f32 comparisons below hold only with TF32 off for matmuls and convs
@@ -433,26 +509,33 @@ def main() -> int:
     errs, timed = check_kernels(dev)
     timed["E"], errs["E"] = check_shift(dev), 0.0
     timed["wide block"] = check_wide_block(dev)
+    errs["F"], timed["F"] = check_tail(dev)
 
     # ---------------------------------------------------------------- 3
     print("phase 3: realsr_v1, full width, bf16, 15 steps, batch 8 of 64x64", flush=True)
+
+    def with_biases(p) -> dict:
+        """The state_dicts of pipeline `p` with every all-zero tensor (biases,
+        the zero-initialised output convs) redrawn, so that every branch
+        reaches the output."""
+        gw = torch.Generator().manual_seed(1)
+        return {name: {k: v if v.any() else (0.02 * torch.randn(v.shape, generator=gw)).to(dev)
+                       for k, v in mod.state_dict().items()}
+                for name, mod in (("unet", p.unet), ("vqgan", p.vq))}
+
     pipe = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16)
     pipe.init_params(seed=0)
-    gw = torch.Generator().manual_seed(1)
-    # non-zero biases, so that every branch reaches the output
-    sds = {name: {k: v if v.any() else (0.02 * torch.randn(v.shape, generator=gw)).to(dev)
-                  for k, v in mod.state_dict().items()}
-           for name, mod in (("unet", pipe.unet), ("vqgan", pipe.vq))}
+    sds = with_biases(pipe)
     pipe.load_state_dicts(**sds)
     lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(2)).to(dev) * 2 - 1
     latents = {}
 
     all_kernels = {"A": sb.SWIN_WINDOW_ATTN, "B": sb.SWIN_MLP, "C": fa.FLASH_ATTN_1H,
-                   "D": vq.VQ_NEAREST, "E": shift_ops.SHIFT_TOKENS}
+                   "D": vq.VQ_NEAREST, "E": shift_ops.SHIFT_TOKENS, "F": tail.GN_SILU_CONV3X3}
 
-    def runner(p, x, seed):
-        """One sample call of pipeline `p` on `x`, the final latent kept
-        under `tag`."""
+    def runner(p, x, seed, mask=None):
+        """One sample call of pipeline `p` on `x` (and `mask`), the final
+        latent kept under `tag`."""
         orig_decode = p._decode
 
         def run(tag):
@@ -461,7 +544,7 @@ def main() -> int:
                 return orig_decode(vqm, z)
 
             p._decode = _decode
-            out = p.sample(x, torch.Generator(device=dev).manual_seed(seed))
+            out = p.sample(x, torch.Generator(device=dev).manual_seed(seed), mask)
             torch.cuda.synchronize()
             return out
         return run
@@ -507,16 +590,17 @@ def main() -> int:
         psnr = 10 * math.log10(peak ** 2 / max(((a - b) ** 2).mean().item(), 1e-30))
         psnr_img = 10 * math.log10(4.0 / max(((out - out_plain) ** 2).mean().item(), 1e-30))
         print(f"  final latent PSNR kernel vs plain: {psnr:.2f} dB (bar 35), "
-              f"image PSNR {psnr_img:.2f} dB", flush=True)
-        if not psnr >= 35.0:
-            raise AssertionError(f"latent PSNR {psnr:.2f} dB below 35")
+              f"image PSNR {psnr_img:.2f} dB (bar 35)", flush=True)
+        if not (psnr >= 35.0 and psnr_img >= 35.0):
+            raise AssertionError(f"latent PSNR {psnr:.2f} dB or image PSNR {psnr_img:.2f} dB "
+                                 f"below 35")
 
     run = runner(pipe, lq, 3)
     reset()
     out = run("kernel")
     launches = {"3": read_launches(all_kernels, sb)}
     print(f"  launches in one sample call: {launches['3']}", flush=True)
-    want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "E": 0, "fused shift": 90}
+    want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "E": 0, "F": 0, "fused shift": 90}
     if launches["3"] != want_launches:
         raise AssertionError(f"launch counts {launches['3']}, want {want_launches}")
     if out.shape != (BSZ, 256, 256, 3) or not torch.isfinite(out).all():
@@ -563,8 +647,9 @@ def main() -> int:
         launches[phase] = read_launches(all_kernels, sb)
         want = expected_launches(pipe3.config, ph, pw)
         print(f"  launches in one sample call: {launches[phase]} (derived: {want})", flush=True)
-        if launches[phase] != want or not all(launches[phase].values()):
-            raise AssertionError(f"launch counts {launches[phase]}, want {want}, none zero")
+        if launches[phase] != want or not all(launches[phase][k] for k in "ABCDE"):
+            raise AssertionError(f"launch counts {launches[phase]}, want {want}, none of A-E "
+                                 f"zero")
         if out.shape != (1, 4 * lh, 4 * lw, 3) or not torch.isfinite(out).all():
             raise AssertionError(f"bad output {tuple(out.shape)}")
         mpx_out = 16 * lh * lw / 1e6
@@ -587,31 +672,150 @@ def main() -> int:
     # ---------------------------------------------------------------- 8
     print("phase 8: python -m resshift_tpu_torch.cli infer on two PNGs (realsr_v1, bf16)",
           flush=True)
+    import numpy as np
+
     from resshift_tpu_torch.utils.image_io import png_decode, png_encode
 
-    sizes = {"square": (64, 64), "wide": (100, 150)}  # the wide one pads to a 128x192 latent
-    rng = torch.Generator().manual_seed(10)
-    with tempfile.TemporaryDirectory() as tmp:
-        src, dst = Path(tmp, "lq"), Path(tmp, "sr")
-        src.mkdir()
-        for name, (h, w) in sizes.items():
-            im = torch.randint(0, 256, (h, w, 3), generator=rng, dtype=torch.uint8).numpy()
-            (src / f"{name}.png").write_bytes(png_encode(im))
-        cmd = [sys.executable, "-m", "resshift_tpu_torch.cli", "infer", "--task", "realsr",
-               "--version", "v1", "--seed", "0", "--in-path", str(src), "--out-path", str(dst)]
+    def cli_infer(args: list, src: Path, dst: Path) -> None:
+        """`cli infer` with `args` on folder `src` in a subprocess."""
+        cmd = [sys.executable, "-m", "resshift_tpu_torch.cli", "infer", *args, "--seed", "0",
+               "--in-path", str(src), "--out-path", str(dst)]
         t1 = time.perf_counter()
         r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         cli_s = time.perf_counter() - t1
         if r.returncode != 0:
-            raise AssertionError(f"cli infer failed (rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
+            raise AssertionError(f"cli infer {args} failed (rc {r.returncode}):\n{r.stdout}\n"
+                                 f"{r.stderr}")
         done = [ln for ln in r.stdout.splitlines() if ln.startswith("Done:")]
-        print(f"  {done[0] if done else 'no Done line'} ({cli_s:.1f} s with start-up)",
-              flush=True)
+        print(f"  {' '.join(args)}: {done[0] if done else 'no Done line'} ({cli_s:.1f} s with "
+              f"start-up)", flush=True)
+
+    def read_output(path: Path, shape: tuple) -> np.ndarray:
+        sr = png_decode(path.read_bytes())
+        if sr.shape != shape or sr.dtype != np.uint8 or sr.std() == 0:
+            raise AssertionError(f"cli output {path.name}: {sr.shape} {sr.dtype}, want {shape}")
+        print(f"  {path.name}: {sr.shape[1]}x{sr.shape[0]} RGB, 8-bit", flush=True)
+        return sr
+
+    rng = torch.Generator().manual_seed(10)
+    png = lambda *shape: torch.randint(0, 256, shape, generator=rng, dtype=torch.uint8).numpy()
+    sizes = {"square": (64, 64), "wide": (100, 150)}  # the wide one pads to a 128x192 latent
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = Path(tmp, "lq"), Path(tmp, "sr")
+        src.mkdir()
         for name, (h, w) in sizes.items():
-            sr = png_decode((dst / f"{name}.png").read_bytes())
-            if sr.shape != (4 * h, 4 * w, 3) or sr.dtype.name != "uint8" or sr.std() == 0:
-                raise AssertionError(f"cli output {name}: {sr.shape} {sr.dtype}")
-            print(f"  {name}.png: {sr.shape[1]}x{sr.shape[0]} RGB, 8-bit", flush=True)
+            (src / f"{name}.png").write_bytes(png_encode(png(h, w, 3)))
+        cli_infer(["--task", "realsr", "--version", "v1"], src, dst)
+        for name, (h, w) in sizes.items():
+            read_output(dst / f"{name}.png", (4 * h, 4 * w, 3))
+
+    # ---------------------------------------------------------------- 9, 10
+    from resshift_tpu_torch.config import task_config
+
+    def task_pipeline(name: str, pin: bool, sds=None):
+        """Task `name` at full width in bf16, kernel F pinned or not in the
+        UNet head and the VQGAN decoder tail through the config keys
+        `model.use_pallas` and `autoencoder.use_pallas`, as a `--config`
+        YAML sets them; phase 3's kind of random weights, or `sds`."""
+        cfg = task_config(name)
+        cfg["model"]["use_pallas"] = cfg["autoencoder"]["use_pallas"] = pin
+        p = ResShiftPipeline(cfg, dtype=torch.bfloat16)
+        if sds is None:
+            p.init_params(seed=0)
+            sds = with_biases(p)
+        p.load_state_dicts(**sds)
+        return p, sds
+
+    for phase, name, side, seed in (("9", "faceir", 512, 12), ("10", "inpaint_imagenet", 256, 13)):
+        pinned, sds = task_pipeline(name, True)
+        f = 2 ** (len(pinned.config["autoencoder"]["ddconfig"]["ch_mult"]) - 1)
+        print(f"phase {phase}: {name}, full width, bf16, {pinned.sched.num_timesteps} steps, one "
+              f"{side}x{side} image ({side // f}x{side // f} latent), pinned model.use_pallas "
+              f"and autoencoder.use_pallas", flush=True)
+        gx = torch.Generator().manual_seed(seed)
+        x = torch.rand(1, side, side, 3, generator=gx).to(dev) * 2 - 1
+        mask = None
+        if pinned.cond_mask:  # a seeded rectangle to fill (1) in a kept field (-1)
+            y0, x0, mh, mw = (int(v) for v in torch.randint(side // 8, side // 2, (4,),
+                                                            generator=gx))
+            mask = -torch.ones(1, side, side, 1, device=dev)
+            mask[:, y0:y0 + mh, x0:x0 + mw] = 1.0
+            print(f"  mask: rows {y0}-{y0 + mh}, columns {x0}-{x0 + mw} filled", flush=True)
+        run = runner(pinned, x, seed, mask)
+        reset()
+        t1 = time.perf_counter()
+        out = run("kernel")
+        first_ms = (time.perf_counter() - t1) * 1e3
+        launches[phase] = read_launches(all_kernels, sb)
+        want = expected_launches(pinned.config, side // f, side // f, tail_pinned=True)
+        print(f"  launches in one sample call: {launches[phase]} (derived: {want})", flush=True)
+        if launches[phase] != want or not all(launches[phase][k] for k in "ABCDF"):
+            raise AssertionError(f"launch counts {launches[phase]}, want {want}, none of A-D "
+                                 f"or F zero")
+        if out.shape != (1, side, side, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"bad output {tuple(out.shape)}")
+
+        unpinned, _ = task_pipeline(name, False, sds)
+        urun = runner(unpinned, x, seed, mask)
+        print("  the same call unpinned, through the plain versions", flush=True)
+        latent_psnr(out, plain_path(urun, fa.attention_plain))
+        reset()
+        urun("unpinned")
+        got, want = read_launches(all_kernels, sb), expected_launches(
+            unpinned.config, side // f, side // f)
+        if got != want:
+            raise AssertionError(f"unpinned launch counts {got}, want {want}")
+        times = {"pinned": [], "unpinned": []}
+        for tag, fn in (("pinned", run), ("unpinned", urun), ("unpinned", urun),
+                        ("pinned", run)):
+            t1 = time.perf_counter()
+            fn(tag)
+            times[tag].append((time.perf_counter() - t1) * 1e3)
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        if phase == "9":  # where one pinned call's device time goes
+            profile_sample(torch, lambda: run("kernel"))
+        print(f"  sample: pinned {ms['pinned']:.1f} ms per call ({times['pinned']}; first call "
+              f"{first_ms:.1f}), unpinned {ms['unpinned']:.1f} ms ({times['unpinned']}; "
+              f"launches {got}), {(side * side / 1e6) / (ms['pinned'] / 1e3):.4f} Mpx/s pinned, "
+              f"on {card}", flush=True)
+        del pinned, unpinned, run, urun, out
+
+    # ---------------------------------------------------------------- 11
+    print("phase 11: cli infer: inpaint_face with --mask-path, faceir, realsr --scale 2",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for d in ("inp", "masks", "face", "x2"):
+            (tmp / d).mkdir()
+        # the mask matches a_face.png by stem; b_other.png takes the first mask
+        ims = {n: png(256, 256, 3) for n in ("a_face", "b_other")}
+        for n, im in ims.items():
+            (tmp / "inp" / f"{n}.png").write_bytes(png_encode(im))
+        m = np.zeros((256, 256), np.uint8)
+        m[64:160, 80:200] = 255
+        (tmp / "masks" / "a_face.png").write_bytes(png_encode(m))
+        cli_infer(["--task", "inpaint_face", "--mask-path", str(tmp / "masks")], tmp / "inp",
+                  tmp / "inp_out")
+        keep = m == 0
+        for n, im in ims.items():
+            sr = read_output(tmp / "inp_out" / f"{n}.png", (256, 256, 3))
+            if not np.array_equal(sr[keep], im[keep]) or np.array_equal(sr[~keep], im[~keep]):
+                raise AssertionError(f"{n}: outside the mask the output must equal the input "
+                                     f"and inside it must not")
+            print(f"  {n}.png: equal to the input at all {int(keep.sum())} px outside the mask, "
+                  f"restored inside", flush=True)
+        (tmp / "face" / "face.png").write_bytes(png_encode(png(512, 512, 3)))
+        cli_infer(["--task", "faceir"], tmp / "face", tmp / "face_out")
+        read_output(tmp / "face_out" / "face.png", (512, 512, 3))
+        # the wide one pads to 128x256; 150 pads to 192 by the padding
+        # offset, whose latent (96) the deepest Swin level's windows do not
+        # divide, so the pipeline pads it on to 256
+        x2_sizes = {"square": (128, 128), "wide": (100, 230), "odd": (100, 150)}
+        for n, (h, w) in x2_sizes.items():
+            (tmp / "x2" / f"{n}.png").write_bytes(png_encode(png(h, w, 3)))
+        cli_infer(["--task", "realsr", "--scale", "2"], tmp / "x2", tmp / "x2_out")
+        for n, (h, w) in x2_sizes.items():
+            read_output(tmp / "x2_out" / f"{n}.png", (2 * h, 2 * w, 3))
 
     print(json.dumps({"kernels": kernel_rows(launches, errs, timed)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,8 @@
 """Command-line interface of the port: `python -m resshift_tpu_torch.cli`.
 
-  infer  restore a folder of images (or one image) with a task's sampler
+  infer  restore a folder of images (or one image) with a task's sampler:
+         --task realsr (--version v1|v2|v3, or --scale 2 for realsr_x2),
+         bicsr, inpaint_imagenet, inpaint_face (with --mask-path) or faceir
   eval   `infer` with the chop and batch of a README reproduce protocol,
          then the PSNR/SSIM(Y) report
 
@@ -10,6 +12,13 @@ ahead while the main thread launches the sampler, and a writer thread waits
 for each batch's result and writes its PNGs.  The noise comes from one
 `torch.Generator` on the device, seeded from `--seed`, which each batch
 advances in turn.  Everything runs on CUDA unless `--device cpu` is given.
+
+Inpainting masks (`--mask-path`, a file or a folder) are read as gray and
+mapped to [-1, 1] (white: the region to fill); each image takes the mask
+of the same stem, else the first mask.  The output is pasted back,
+sr * m + lq * (1 - m) with m = mask * 0.5 + 0.5, so that outside the mask
+it keeps the input's pixels; `--mask-back` is on whatever is given, as in
+the JAX package.
 
 Checkpoints: `--ckpt` / `--vqgan-ckpt` name local copies of the released
 `.pth` files; the port never downloads.  Without `--ckpt` it warns, prints
@@ -43,7 +52,10 @@ EVAL_PROTOCOLS = {
 
 
 def _task_name(args) -> str:
-    return args.task if args.task != "realsr" else f"realsr_{args.version}"
+    """The registry name: realsr takes its --version, or realsr_x2 at --scale 2."""
+    if args.task != "realsr":
+        return args.task
+    return "realsr_x2" if args.scale == 2 else f"realsr_{args.version}"
 
 
 def _config(args) -> dict:
@@ -73,6 +85,12 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
     print(f"Found {len(files)} image(s) in {in_path}; sampling on {pipe.device}", flush=True)
     generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
     bs = max(1, args.bs)
+    masks = None
+    if args.mask_path:
+        mp = Path(args.mask_path)
+        masks = {f.stem: f for f in (list_images(mp) if mp.is_dir() else [mp])}
+        if not masks:
+            raise FileNotFoundError(f"no mask image under {mp}")
 
     def batches():
         pend: dict[tuple, list] = {}
@@ -89,13 +107,24 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
     with AsyncWriter(depth=2) as writer:
         for group in prefetch(batches(), depth=2):
             lq = torch.from_numpy(np.concatenate([to_model(im) for _, im in group], axis=0))
-            sr = pipe.sample(lq, generator, noise_repeat=args.noise_repeat,
-                             tile_bs=args.chop_bs)
+            mask = None
+            if masks is not None:
+                mask = np.concatenate([to_model(imread(masks.get(f.stem) or
+                                                       next(iter(masks.values())), chn="gray"))
+                                       for f, _ in group], axis=0)
+            sr = pipe.sample(lq, generator, None if mask is None else torch.from_numpy(mask),
+                             noise_repeat=args.noise_repeat, tile_bs=args.chop_bs)
 
-            def write_job(pool, group=group, sr=sr):
+            def write_one(arr, j, f, im, mask):
+                sr01 = from_model(arr[j:j + 1])[0]
+                if mask is not None and args.mask_back:
+                    m01 = mask[j] * 0.5 + 0.5
+                    sr01 = sr01 * m01 + im[..., :3] * (1 - m01)
+                imwrite(sr01, out_path / f"{f.stem}.png")
+
+            def write_job(pool, group=group, sr=sr, mask=mask):
                 arr = sr.cpu().numpy()  # waits for the device to finish this batch
-                list(pool.map(lambda jf: imwrite(from_model(arr[jf[0]:jf[0] + 1])[0],
-                                                 out_path / f"{jf[1][0].stem}.png"),
+                list(pool.map(lambda jf: write_one(arr, jf[0], *jf[1], mask),
                               enumerate(group)))
                 with lock:
                     state["px"] += arr.shape[0] * arr.shape[1] * arr.shape[2]
@@ -156,6 +185,7 @@ def cmd_eval(args) -> None:
     cfg["inference"]["chop_size"] = proto["chop_size"]
     cfg["inference"]["chop_stride"] = proto["chop_stride"]
     args.bs, args.noise_repeat = proto["bs"], False
+    args.mask_path, args.mask_back = None, False
     files, seconds = _infer(_pipeline(args, cfg), args)
     print(f"Protocol {args.protocol}: {len(files)} images in {seconds:.1f}s", flush=True)
     if args.gt_path:
@@ -168,8 +198,11 @@ def make_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     def common(sp):
-        sp.add_argument("--task", default="realsr", choices=["realsr", "bicsr"])
+        sp.add_argument("--task", default="realsr",
+                        choices=["realsr", "bicsr", "inpaint_imagenet", "inpaint_face", "faceir"])
         sp.add_argument("--version", default="v3", choices=["v1", "v2", "v3"])
+        sp.add_argument("--scale", type=int, default=4,
+                        help="realsr only: 2 selects realsr_x2 (and ignores --version)")
         sp.add_argument("--config", default=None, help="custom YAML config")
         sp.add_argument("--ckpt", default=None, help="released denoiser .pth")
         sp.add_argument("--vqgan-ckpt", default=None, help="released VQGAN .pth")
@@ -189,6 +222,10 @@ def make_parser() -> argparse.ArgumentParser:
     pi.add_argument("--chop-stride", type=int, default=None)
     pi.add_argument("--bs", type=int, default=1)
     pi.add_argument("--noise-repeat", action="store_true")
+    pi.add_argument("--mask-path", default=None, help="inpainting mask (file or folder)")
+    pi.add_argument("--mask-back", action="store_true", default=True,
+                    help="paste the input back outside the mask (always on, as in the "
+                         "JAX package)")
     pi.set_defaults(fn=cmd_infer)
 
     pe = sub.add_parser("eval", help="README reproduce protocols "

@@ -11,6 +11,7 @@ the JAX package's mapping, so that nothing here imports Flax or JAX.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Iterable, Mapping
 
 import numpy as np
@@ -82,13 +83,18 @@ def _walk_unet_swin(flat, sd, *, image_size: int = 64,
                     channel_mult: Iterable[int] = (1, 2, 2, 4),
                     num_res_blocks: Iterable[int] | int = (2, 2, 2, 2),
                     attention_resolutions: Iterable[int] = (64, 32, 16, 8),
-                    swin_depth: int = 2, **_ignored) -> None:
+                    swin_depth: int = 2, cond_lq: bool = True, lq_size: int | None = None,
+                    **_ignored) -> None:
     channel_mult = list(channel_mult)
     nrb = ([num_res_blocks] * len(channel_mult) if isinstance(num_res_blocks, int)
            else list(num_res_blocks))
     attn = set(attention_resolutions)
     _emit(flat, sd, "time_embed.0", ("time_embed_0",), "linear")
     _emit(flat, sd, "time_embed.2", ("time_embed_2",), "linear")
+    if cond_lq and lq_size is not None and lq_size != image_size:
+        for i in range(int(math.log2(lq_size / image_size))):  # the LQ feature pyramid
+            _emit(flat, sd, f"feature_extractor.{3 * i}", (f"fe_conv{i}",), "conv")
+            _emit(flat, sd, f"feature_extractor.{3 * i + 2}.op", (f"fe_down{i}", "op"), "conv")
     _emit(flat, sd, "input_blocks.0.0", ("conv_in",), "conv")
     n, ds = 1, image_size
     for level in range(len(channel_mult)):
@@ -178,8 +184,10 @@ def from_flax(params: Mapping, which: str, **cfg) -> dict[str, np.ndarray]:
     """A JAX parameter tree -> reference-layout state_dict (numpy float32).
 
     which='unet' takes the UNetModelSwin hyperparameters (image_size,
-    channel_mult, num_res_blocks, attention_resolutions, swin_depth; others
-    are ignored); which='vqgan' takes ch_mult and num_res_blocks."""
+    channel_mult, num_res_blocks, attention_resolutions, swin_depth, and
+    cond_lq with lq_size for the LQ feature pyramid, which is mapped when
+    lq_size is given and differs from image_size; others are ignored);
+    which='vqgan' takes ch_mult and num_res_blocks (f4 and f8)."""
     flat = _flatten(params)
     sd: dict[str, np.ndarray] = {}
     if which == "unet":

@@ -1,7 +1,8 @@
 """Basic building blocks (NCHW inside, reference-layout parameter names).
 
   * GroupNorm32 computes its statistics in float32 and casts back to the
-    input dtype (eps 1e-5; the VQGAN uses 1e-6).
+    input dtype (eps 1e-5; the VQGAN uses 1e-6); `group_norm_fold` gives
+    the same normalisation as a per-(image, channel) affine.
   * timestep_embedding puts cos first, then sin.
   * ResBlock: GN-SiLU-conv3x3, FiLM scale-shift timestep injection, output
     conv zero-initialised.
@@ -20,7 +21,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["Conv2d", "Linear", "GroupNorm32", "timestep_embedding", "ResBlock",
+from ..ops.tail import group_norm_fold
+
+__all__ = ["Conv2d", "Linear", "GroupNorm32", "group_norm_fold", "timestep_embedding", "ResBlock",
            "Upsample", "Downsample", "upsample_nearest2x"]
 
 

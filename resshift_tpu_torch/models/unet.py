@@ -5,19 +5,30 @@
     Downsample; middle = ResBlock, BasicLayer, ResBlock; the decoder mirrors
     it with skip concatenation and Upsample;
   * timestep MLP: sinusoidal(model_channels) -> Linear(4x) -> SiLU -> Linear;
-  * the LQ image is channel-concatenated with x_t (lq_size == image_size);
+  * LQ conditioning: the LQ image (and the mask channel, concatenated
+    first) goes through a strided-conv `feature_extractor` when lq_size >
+    image_size (log2(lq_size / image_size) levels of conv3x3 to 16 * 2^i
+    channels, SiLU, stride-2 conv to twice that), else as it is, and is
+    channel-concatenated with x_t;
   * the head (GN, SiLU, 3x3 conv) runs in the input dtype, float32.
+`use_pallas=True` (the config key `model.use_pallas`) launches kernel F in
+the head, as the JAX package's pin launches K8 there; off by default.  The
+Swin blocks take kernels A, B and E on a CUDA tensor whatever the pin.
+`size_multiple` is the latent side that the downsamplings and the Swin
+windows divide.
 Module names follow the reference's state_dict (input_blocks.N.M, ...).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..ops.tail import gn_silu_conv3x3
+from ..ops import tail
 from .layers import Conv2d, Downsample, GroupNorm32, Linear, ResBlock, Upsample, timestep_embedding
 from .swin import BasicLayer
 
@@ -34,21 +45,25 @@ class UNetModelSwin(nn.Module):
                  swin_depth: int = 2, swin_embed_dim: int = 192, window_size: int = 8,
                  mlp_ratio: float = 4.0, patch_norm: bool = False, cond_lq: bool = True,
                  cond_mask: bool = False, lq_size: int = 64,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
-        if (resblock_updown or patch_norm or not conv_resample or not use_scale_shift_norm
-                or (cond_lq and lq_size != image_size)):
+        if resblock_updown or patch_norm or not conv_resample or not use_scale_shift_norm:
             raise NotImplementedError(
-                "this port covers resblock_updown=False, patch_norm=False, conv_resample=True, "
-                "use_scale_shift_norm=True and lq_size == image_size (the realsr configs)")
+                "this port covers resblock_updown=False, patch_norm=False, conv_resample=True "
+                "and use_scale_shift_norm=True (the shipped task configs)")
         nrb = [num_res_blocks] * len(channel_mult) if isinstance(num_res_blocks, int) \
             else list(num_res_blocks)
         mc, ted = model_channels, model_channels * 4
         heads = num_heads if num_head_channels == -1 else swin_embed_dim // num_head_channels
         self.dtype, self.model_channels = dtype, model_channels
+        self.use_pallas = bool(use_pallas)
         self.cond_lq, self.cond_mask = cond_lq, cond_mask
+        self.size_multiple = 2 ** (len(channel_mult) - 1)
 
         def swin(ch, ds):
+            # a level built at ds runs at the latent's 1 / (image_size / ds)
+            self.size_multiple = math.lcm(self.size_multiple,
+                                          image_size // ds * min(window_size, ds))
             return BasicLayer(ch, swin_embed_dim, heads, window_size, swin_depth,
                               build_resolution=ds, mlp_ratio=mlp_ratio, dtype=dtype)
 
@@ -57,7 +72,19 @@ class UNetModelSwin(nn.Module):
 
         self.time_embed = nn.Sequential(Linear(mc, ted, dtype=dtype), nn.SiLU(),
                                         Linear(ted, ted, dtype=dtype))
-        cin = in_channels + (3 if cond_lq else 0) + (1 if cond_mask else 0)
+        cin = in_channels
+        self.feature_extractor = None
+        if cond_lq:
+            lq_ch = 3 + (1 if cond_mask else 0)
+            levels = int(math.log2(lq_size / image_size))
+            if levels:  # conv3x3 -> SiLU -> stride-2 conv, per level
+                fe, base = [], 16
+                for _ in range(levels):
+                    fe += [Conv2d(lq_ch, base, 3, padding=1, dtype=dtype), nn.SiLU(),
+                           Downsample(base, 2 * base, dtype=dtype)]
+                    lq_ch, base = 2 * base, 2 * base
+                self.feature_extractor = nn.Sequential(*fe)
+            cin += lq_ch
         ch = int(channel_mult[0] * mc)
         self.input_blocks = nn.ModuleList([nn.ModuleList([Conv2d(cin, ch, 3, padding=1,
                                                                  dtype=dtype)])])
@@ -98,18 +125,28 @@ class UNetModelSwin(nn.Module):
             h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
         return h
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor, lq: torch.Tensor | None = None,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
-        """x: (B, H, W, C) latent, timesteps: (B,), lq: (B, H, W, 3) -> (B, H, W, out)."""
+    def forward(self, x: torch.Tensor | None, timesteps: torch.Tensor | None,
+                lq: torch.Tensor | None = None, mask: torch.Tensor | None = None,
+                lq_feat: torch.Tensor | None = None,
+                features_only: bool = False) -> torch.Tensor:
+        """x: (B, H, W, C) latent, timesteps: (B,), lq: (B, lq_size-scaled
+        H, W, 3), mask: (B, ..., 1) -> (B, H, W, out).  The LQ features do
+        not depend on the timestep: `features_only=True` returns them (x and
+        timesteps may be None) and `lq_feat=` takes them back in place of
+        lq and mask, so that a sampler computes them once per call."""
+        if lq is not None and lq_feat is None:
+            if not self.cond_lq or (mask is not None and not self.cond_mask):
+                raise ValueError("this model takes no LQ image or no mask")
+            lq_feat = (lq if mask is None else torch.cat([lq, mask], dim=-1)).to(self.dtype)
+            if self.feature_extractor is not None:
+                lq_feat = self.feature_extractor(lq_feat.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if features_only:
+            return lq_feat
         dt = self.dtype
         in_dtype = x.dtype
-        emb = self.time_embed[2](torch.nn.functional.silu(
+        emb = self.time_embed[2](F.silu(
             self.time_embed[0](timestep_embedding(timesteps, self.model_channels))))
-        parts = [x.to(dt)]
-        if lq is not None:
-            parts.append(lq.to(dt))
-            if mask is not None:
-                parts.append(mask.to(dt))
+        parts = [x.to(dt)] + ([] if lq_feat is None else [lq_feat.to(dt)])
         h = torch.cat(parts, dim=-1).permute(0, 3, 1, 2)
         hs = []
         for blk in self.input_blocks:
@@ -119,6 +156,6 @@ class UNetModelSwin(nn.Module):
         for blk in self.output_blocks:
             h = self._run(blk, torch.cat([h, hs.pop()], dim=1), emb)
         h = h.to(in_dtype).float()
-        out = gn_silu_conv3x3(h, self.out[0].weight, self.out[0].bias, self.out[2].weight,
-                              self.out[2].bias, eps=1e-5)
+        out = tail.gn_silu_conv3x3(h, self.out[0].weight, self.out[0].bias, self.out[2].weight,
+                                   self.out[2].bias, eps=1e-5, use_pallas=self.use_pallas)
         return out.permute(0, 2, 3, 1)

@@ -1,4 +1,4 @@
-"""VQGAN autoencoder (f4) — NHWC at `encode`/`decode`, NCHW inside.
+"""VQGAN autoencoder (f4 and f8) — NHWC at `encode`/`decode`, NCHW inside.
 
   * Encoder/Decoder conv backbones with GroupNorm eps 1e-6 and SiLU; the
     strided downsample conv pads asymmetrically (0, 1).
@@ -8,6 +8,9 @@
     query-chunked form above `chunk_threshold` tokens.
   * VectorQuantizer: nearest code (kernel D on a CUDA tensor), then a gather.
     `encode` returns the pre-quantization latent; `decode` quantizes first.
+  * The decoder tail (GN, SiLU, conv_out) goes through ops/tail.py.
+  * `use_pallas=True` launches kernel F in the decoder tail, as the JAX
+    package's pin launches K8 there; off by default.
 Module names follow the reference's state_dict (encoder.down.0.block.0...).
 """
 
@@ -19,8 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import flash_attention, vq
-from ..ops.tail import gn_silu_conv3x3
+from ..ops import flash_attention, tail, vq
 from .layers import Conv2d, GroupNorm32, upsample_nearest2x
 
 __all__ = ["ResnetBlock", "AttnBlock", "Downsample", "Upsample", "Encoder", "Decoder",
@@ -142,10 +144,11 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4),
                  num_res_blocks: Sequence[int] | int = 2, z_channels: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
         nrb = _nrb(num_res_blocks, len(ch_mult))
         block_in = ch * ch_mult[-1]
+        self.use_pallas = bool(use_pallas)
         self.conv_in = Conv2d(z_channels, block_in, 3, padding=1, dtype=dtype)
         self.mid = nn.Module()
         self.mid.block_1 = ResnetBlock(block_in, dtype=dtype)
@@ -174,8 +177,9 @@ class Decoder(nn.Module):
                 h = blk(h)
             if hasattr(level, "upsample"):
                 h = level.upsample(h)
-        return gn_silu_conv3x3(h, self.norm_out.weight, self.norm_out.bias,
-                               self.conv_out.weight, self.conv_out.bias, eps=1e-6)
+        return tail.gn_silu_conv3x3(h, self.norm_out.weight, self.norm_out.bias,
+                                    self.conv_out.weight, self.conv_out.bias, eps=1e-6,
+                                    use_pallas=self.use_pallas)
 
 
 class VectorQuantizer(nn.Module):
@@ -201,7 +205,7 @@ class VQModel(nn.Module):
     Both take and return NHWC."""
 
     def __init__(self, ddconfig: dict, n_embed: int = 8192, embed_dim: int = 3,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
         super().__init__()
         dd = ddconfig
         if dd.get("attn_resolutions") or dd.get("double_z"):
@@ -209,7 +213,7 @@ class VQModel(nn.Module):
         common = dict(ch=dd["ch"], ch_mult=dd["ch_mult"], num_res_blocks=dd["num_res_blocks"],
                       z_channels=dd["z_channels"], dtype=dtype)
         self.encoder = Encoder(in_channels=dd.get("in_channels", 3), **common)
-        self.decoder = Decoder(out_ch=dd.get("out_ch", 3), **common)
+        self.decoder = Decoder(out_ch=dd.get("out_ch", 3), use_pallas=use_pallas, **common)
         self.quantize = VectorQuantizer(n_embed, embed_dim)
         self.quant_conv = Conv2d(dd["z_channels"], embed_dim, 1, dtype=dtype)
         self.post_quant_conv = Conv2d(embed_dim, dd["z_channels"], 1, dtype=dtype)

@@ -1,11 +1,20 @@
-"""End-to-end ResShift sampler: bicubic x sf upsample, VQGAN encode, prior
-sample, the reverse chain over UNetModelSwin, VQGAN decode, clamp to [-1, 1];
-inputs larger than the chop size go through an overlapping tile grid.
+"""End-to-end ResShift sampler: bicubic x sf upsample (none at sf 1), VQGAN
+encode, prior sample, the reverse chain over UNetModelSwin, VQGAN decode,
+clamp to [-1, 1]; inputs larger than the chop size go through an
+overlapping tile grid, their masks (inpainting) through the same grid.
 
   * `clip_denoised` is False whenever an autoencoder is present.
   * Inputs are reflect-padded to a multiple of `padding_offset` and cropped
-    back after sampling.
+    back after sampling.  A side that is not tiled is padded further where
+    the UNet could not take it (at x2 an LQ side padding to 192 goes to
+    256; the JAX package raises there); the reflection repeats where the
+    padding is not smaller than the side.
   * `noise_repeat` repeats sample 0's noise across the batch.
+  * A UNet with an LQ feature pyramid (lq_size != image_size: x2 SR,
+    inpainting, faceir) gets its features once per call, not once per step.
+  * A config's `model.use_pallas: true` launches kernel F in the UNet head
+    (the JAX package's pin) and `autoencoder.use_pallas: true` in the VQGAN
+    decoder tail (a key of this package only).
 
 The pipeline runs on CUDA unless the caller passes `device="cpu"`; without
 CUDA and without that argument it raises.  Images are NHWC float32 in
@@ -98,9 +107,13 @@ class ResShiftPipeline:
         ae = config.get("autoencoder")
         self.vq = None if ae is None else VQModel(
             ae["ddconfig"], n_embed=ae["n_embed"], embed_dim=ae["embed_dim"],
-            dtype=dtype).to(self.device).eval()
+            dtype=dtype, use_pallas=ae.get("use_pallas", False)).to(self.device).eval()
         inf = config.get("inference", {})
         self.padding_offset = int(inf.get("padding_offset", m.get("lq_size", 64)))
+        # the LQ side whose latent the UNet takes: latent = LQ * sf / f
+        f = 1 if ae is None else 2 ** (len(ae["ddconfig"]["ch_mult"]) - 1)
+        need = self.unet.size_multiple * f
+        self.lq_multiple = need // math.gcd(need, self.sf)
         self.chop_size = int(inf.get("chop_size", 512))
         self.chop_stride = int(inf.get("chop_stride", 448))
         self._compute = None
@@ -175,13 +188,16 @@ class ResShiftPipeline:
             return z
         return vq.decode(z / self.sched.scale_factor).float()
 
-    def _cond_kwargs(self, lq, mask) -> dict:
+    def _cond_kwargs(self, unet: nn.Module, lq, mask) -> dict:
+        """The UNet's conditioning: the pyramid's features, computed here once
+        for every step (the reference recomputes them each step: same
+        math), or the LQ image and mask as they are."""
         if not self.cond_lq:
             return {}
-        kw = {"lq": lq}
-        if self.cond_mask and mask is not None:
-            kw["mask"] = mask
-        return kw
+        mask = mask if self.cond_mask else None
+        if unet.feature_extractor is not None:
+            return {"lq_feat": unet(None, None, lq=lq, mask=mask, features_only=True)}
+        return {"lq": lq} if mask is None else {"lq": lq, "mask": mask}
 
     @torch.no_grad()
     def _sample_tile(self, lq: torch.Tensor, generator: torch.Generator | None, mask=None,
@@ -198,27 +214,36 @@ class ResShiftPipeline:
             if noise_repeat:
                 noise = noise[:1].expand_as(noise)
         z0 = rs.sample_loop(self.sched, unet, z_y, generator, noise=noise,
-                            clip_denoised=vq is None, model_kwargs=self._cond_kwargs(lq, mask),
+                            clip_denoised=vq is None,
+                            model_kwargs=self._cond_kwargs(unet, lq, mask),
                             noise_repeat=noise_repeat, step_noise=step_noise)
         return self._decode(vq, z0).clamp(-1.0, 1.0)
 
     def _sample_padded(self, lq, generator, mask, noise_repeat, chop_size, chop_stride,
                        tile_bs):
-        """Pad -> (maybe tile) -> sample -> crop.  The reflect pad needs each
-        side larger than its padding, as in the reference sampler."""
+        """Pad -> (maybe tile) -> sample -> crop.  A side longer than the
+        chop size is cut into chop-sized tiles; a shorter one stays whole
+        and is padded on to a multiple of `lq_multiple`."""
         b, h, w, c = lq.shape
-        offset = self.padding_offset
-        ph = math.ceil(h / offset) * offset - h
-        pw = math.ceil(w / offset) * offset - w
+        offset, mult = self.padding_offset, self.lq_multiple
+
+        def padded(n):
+            p = math.ceil(n / offset) * offset
+            return math.ceil(n / mult) * mult if p <= chop_size and p % mult else p
+
+        hp, wp = padded(h), padded(w)
 
         def pad(t):
-            if not (ph or pw):
-                return t
-            return F.pad(t.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="reflect").permute(0, 2, 3, 1)
+            t = t.permute(0, 3, 1, 2)
+            while t.shape[2] < hp or t.shape[3] < wp:
+                if min(t.shape[2:]) < 2:
+                    raise ValueError(f"cannot reflect-pad a {h}x{w} input to {hp}x{wp}")
+                t = F.pad(t, (0, min(wp - t.shape[3], t.shape[3] - 1), 0,
+                              min(hp - t.shape[2], t.shape[2] - 1)), mode="reflect")
+            return t.permute(0, 2, 3, 1)
 
         lq = pad(lq)
         mask = None if mask is None else pad(mask)
-        hp, wp = h + ph, w + pw
         if hp <= chop_size and wp <= chop_size:
             out = self._sample_tile(lq, generator, mask, noise_repeat)
         else:
@@ -242,8 +267,10 @@ class ResShiftPipeline:
                chop_size: int | None = None, chop_stride: int | None = None,
                tile_bs: int = 1) -> torch.Tensor:
         """SR / restore a batch of LQ images, (B, H, W, 3) in [-1, 1] ->
-        (B, H*sf, W*sf, 3).  Noise comes from `generator` (a fresh one
-        seeded 0 on the pipeline's device when None)."""
+        (B, H*sf, W*sf, 3).  `mask` (B, H, W, 1) in [-1, 1] is the
+        inpainting mask (1 where the image is to be filled), for the models
+        with `cond_mask`.  Noise comes from `generator` (a fresh one seeded
+        0 on the pipeline's device when None)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         lq = lq.to(self.device, torch.float32)

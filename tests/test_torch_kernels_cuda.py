@@ -16,6 +16,7 @@ from resshift_tpu_torch.models.swin import shifted_window_mask
 from resshift_tpu_torch.ops import flash_attention as fa
 from resshift_tpu_torch.ops import shift
 from resshift_tpu_torch.ops import swin_block as sb
+from resshift_tpu_torch.ops import tail
 from resshift_tpu_torch.ops import vq
 
 pytestmark = pytest.mark.cuda
@@ -103,6 +104,23 @@ def test_shift_tokens_exact(gen, dt, b, h, w, c):
                                shift.shift_tokens_plain(t, h, w, 8, 4, inverse))
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,co", [(2, 160, 20, 36, 3), (1, 64, 33, 70, 8),
+                                        (3, 24, 16, 32, 5), (1, 8, 5, 7, 1)])
+def test_gn_silu_conv3x3_ragged_tiles(gen, dt, b, c, h, w, co):
+    """Kernel F on maps that are not whole 16 x 32 tiles, channel counts
+    that are not whole chunks of 16, and every co padding; a non-zero GN
+    bias, so that a zero border of the input would show."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = (1.5 * rn(b, c, h, w) + 0.3).to(dt)
+    args = (x, 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c), rn(co, c, 3, 3) / (9 * c) ** 0.5, 0.1 * rn(co))
+    n = tail.GN_SILU_CONV3X3.launches
+    got = tail.gn_silu_conv3x3(*args, eps=1e-6, use_pallas=True)
+    assert tail.GN_SILU_CONV3X3.launches == n + 1 and got.dtype == dt
+    _close(got, tail.gn_silu_conv3x3(*args, eps=1e-6), dt)  # unpinned: plain, no launch
+    assert tail.GN_SILU_CONV3X3.launches == n + 1
+
+
 def test_wrappers_raise_on_unsupported_shapes(gen):
     q = torch.zeros(1, 64, 256, device="cuda")
     with pytest.raises(ValueError):
@@ -111,3 +129,10 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
         shift.shift_tokens(torch.zeros(1, 60, 8, device="cuda"), 6, 10, 8, 4)
     with pytest.raises(TypeError):
         shift.shift_tokens(torch.zeros(1, 64, 8, device="cuda", dtype=torch.float16), 8, 8, 8, 4)
+    x, g = torch.ones(1, 16, 8, 8, device="cuda"), torch.ones(16, device="cuda")
+    with pytest.raises(ValueError):  # co > 8
+        tail.gn_silu_conv3x3(x, g, g, torch.ones(9, 16, 3, 3, device="cuda"),
+                             torch.ones(9, device="cuda"), use_pallas=True)
+    with pytest.raises(TypeError):
+        tail.gn_silu_conv3x3(x.half(), g, g, torch.ones(3, 16, 3, 3, device="cuda"),
+                             torch.ones(3, device="cuda"), use_pallas=True)
