@@ -39,7 +39,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      on to a multiple of 128);
 phase 2 also holds kernel F (gn_silu_conv3x3) against its plain version at
 the UNet head's and the decoder tails' shapes, with the cuDNN composition
-timed beside it;
+timed beside it, and the kernels of the profiling entry points: K9
+window_attn at (4096, 64, 192) with one bias and with 64 (shift mask), in
+bf16 and f32, timed beside F.multi_head_attention_forward, and the order
+of its gradients; K10 winograd_conv3x3 at unet res@64 and dec up0@256
+with the batch cut to 8, against the plain formulation and F.conv2d; P1
+conv3x3 at (8, 64, 64, 160) with 1 and 4 rows per CTA; P2 attn_variants,
+all five softmaxes, at (8, 4096, 192);
+ 12. the four tools `python -m resshift_tpu_torch.tools.<tool>` in
+     subprocesses (profile_unet, profile_winograd, profile_conv,
+     profile_attn_variants), each at its full width with few iterations:
+     each exits 0 and launches its kernels (their counts are the tools'
+     own, read from the JSON line each prints);
 then print the `kernels` JSON line and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
@@ -65,6 +76,21 @@ WIDE_LATENTS = [(192, 256), (512, 512)]
 # of 8, the f8 decoder tail of one 512x512 face
 TAIL_SHAPES = [("UNet head", 8, 160, 64, 64, 3, "f32"), ("faceir head", 1, 160, 64, 64, 8, "f32"),
                ("f4 tail", 8, 128, 256, 256, 3, "bf16"), ("f8 tail", 1, 64, 512, 512, 3, "bf16")]
+
+# the profiling entry points' kernels: K9 at profile_unet's attention phase
+# (64 tiles x 64 windows), K10 at two of profile_winograd's SHAPES and P1 at
+# profile_conv's shape with the batch cut to 8, P2 at (8, 4096, 192)
+K9_WINDOWS = 4096
+K10_SHAPES = [("unet res@64", 8, 64, 160, 160), ("dec up0@256 256->128", 8, 256, 256, 128)]
+P1_SHAPE = (8, 64, 64, 160)
+P1_ROWS = (1, 4)  # P1's rows per CTA: checked in phase 2, swept by profile_conv in phase 12
+# phase 12: each tool with its arguments and the kernels it must launch
+TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"], ["window_attn"]),
+             ("profile_winograd", ["--only=res@64"], ["winograd_conv3x3"]),
+             ("profile_conv", ["--rows", ",".join(map(str, P1_ROWS))], ["conv3x3"]),
+             ("profile_attn_variants", [], ["swin_window_attn", "attn_variants"])]
+PROBE_KERNELS = {"K9": "window_attn", "K10": "winograd_conv3x3", "P1": "conv3x3",
+                 "P2": "attn_variants"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 PEAK_BYTES = 3.35e12
@@ -375,6 +401,189 @@ def check_tail(dev):
     return err, timed
 
 
+def check_window_attention(dev):
+    """Phase 2, kernel K9 against its plain version at (4096, 64, 192), 6
+    heads, with one bias and with 64 (rel-pos bias plus the shift mask of a
+    64x64 map), in bf16 and f32; its gradient (the autograd.Function)
+    against plain autograd at 64 windows in f32 (the backward recomputes
+    through the plain version, so this holds the order of the gradients,
+    not a kernel).  The library's one call for the same function is
+    F.multi_head_attention_forward with the bias as a float mask of shape
+    (M * nh, N, N).  Returns (max bf16 error, (ms, plain ms, library ms,
+    bound ms, bound by)), timed in bf16 with one bias."""
+    import torch
+    import torch.nn.functional as F
+
+    from resshift_tpu_torch.models.swin import shifted_window_mask
+    from resshift_tpu_torch.ops import window_attention as wa
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    m, n, c, nh = K9_WINDOWS, N, C, NH
+    tol = {torch.bfloat16: (2 ** -6, 1e-3), torch.float32: (1e-4, 1e-5)}
+    err, timed = 0.0, None
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        for nw in (1, 64):
+            x = rn(m, n, c).to(dt)
+            wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+                   (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+            bm = 0.02 * rn(nw, nh, n, n)
+            if nw > 1:
+                bm = bm + torch.as_tensor(shifted_window_mask(64, 64, 8, 4), device=dev)[:, None]
+            fk = lambda: wa.window_attention(x, *wts, bm, nh)
+            fp = lambda: wa.window_attention_plain(x, *wts, bm, nh)
+            e = check(f"K9 {tag} ({m}, {n}, {c}) nW {nw}", fk(), fp(), *tol[dt])
+            if dt == torch.bfloat16:
+                err = max(err, e)
+            if (tag, nw) == ("bf16", 1):
+                nbytes = 2 * m * n * c * 2 + (4 * c * c + 4 * c) * 2 + nh * n * n * 4
+                ops = m * (2 * n * c * 3 * c + 4 * n * n * c + 2 * n * c * c)
+                mask = bm.to(dt).expand(m, nh, n, n).reshape(m * nh, n, n)
+                xt = x.transpose(0, 1)
+                fl = lambda: F.multi_head_attention_forward(
+                    xt, xt, xt, c, nh, wts[0].t(), wts[1], None, None, False, 0.0, wts[2].t(),
+                    wts[3], training=False, need_weights=False, attn_mask=mask)[0]
+                check(f"K9's library call {tag} nW {nw} vs plain", fl().transpose(0, 1), fp(),
+                      *tol[dt])
+                timed = ((cuda_ms(torch, fk), cuda_ms(torch, fp), cuda_ms(torch, fl))
+                         + bound(nbytes, ops, "bf16"))
+                print(f"  K9 ms {timed[0]:.4f}, plain ms {timed[1]:.4f}, "
+                      f"multi_head_attention_forward ms {timed[2]:.4f}, bound ms {timed[3]:.4f} "
+                      f"({timed[4]})", flush=True)
+    ins = [t.detach().float().clone().requires_grad_() for t in (x[:64], *wts, bm[:1])]
+    ref = [t.detach().clone().requires_grad_() for t in ins]
+    gy = rn(64, n, c)
+    wa.window_attention(*ins, nh).backward(gy)
+    wa.window_attention_plain(*ref, nh).backward(gy)
+    for name, a, b in zip(("x", "wqkv", "bqkv", "wproj", "bproj", "bias"), ins, ref):
+        check(f"K9 backward order f32 (64, {n}, {c}) d{name}", a.grad, b.grad, 1e-4, 1e-5)
+    return err, timed
+
+
+def check_conv_probes(dev):
+    """Phase 2, kernels K10 (Winograd) and P1 (direct conv): K10 at
+    K10_SHAPES against the plain Winograd formulation (phase 2's bands) and
+    against F.conv2d in f32 (the direct conv: 1e-4 relative in f32, the
+    bf16 band in bf16); P1 at P1_SHAPE with each of P1_ROWS rows per CTA
+    against its plain version, in bf16 and f32.  Times in bf16 the kernel, the plain version and F.conv2d
+    (cuDNN, channels_last).  Returns ({key: max bf16 error}, {key: (ms,
+    plain ms, library ms, bound ms, bound by)}), K10 keyed by shape."""
+    import torch
+
+    from resshift_tpu_torch.ops import conv3x3 as cv, winograd as wg
+    from resshift_tpu_torch.tools import direct_conv as direct
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    tol = {torch.bfloat16: (2 ** -6, 1e-3), torch.float32: (1e-4, 1e-5)}
+    errs, timed = {}, {}
+    for label, bsz, hw, c, co in K10_SHAPES:
+        key = f"K10 {label}"
+        for dt in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dt == torch.bfloat16 else "f32"
+            x = (0.3 * rn(bsz, hw, hw, c)).to(dt)
+            w, b = (0.05 * rn(3, 3, c, co)).to(dt), 0.1 * rn(co)
+            got = wg.winograd_conv3x3(x, w, b)
+            e = check(f"{key} {tag} {(bsz, hw, hw, c)} -> {co} vs plain", got,
+                      wg.winograd_conv3x3_plain(x, w, b), *tol[dt])
+            check(f"{key} {tag} vs direct conv (f32)", got, direct(x.float(), w.float(), b),
+                  *tol[dt])
+            if dt == torch.bfloat16:
+                errs[key] = e
+                nbytes = bsz * hw * hw * (c + co) * 2 + 16 * c * co * 2 + co * 4
+                ops = 2 * 16 * bsz * (hw // 2) ** 2 * c * co
+                t = (cuda_ms(torch, lambda: wg.winograd_conv3x3(x, w, b), reps=5),
+                     cuda_ms(torch, lambda: wg.winograd_conv3x3_plain(x, w, b), reps=5),
+                     cuda_ms(torch, lambda: direct(x, w, b), reps=5))
+                timed[key] = t + bound(nbytes, ops, "bf16")
+                print(f"  {key} ms {t[0]:.4f}, plain ms {t[1]:.4f}, F.conv2d ms {t[2]:.4f}, "
+                      f"bound ms {timed[key][3]:.4f} ({timed[key][4]})", flush=True)
+    bsz, hw, _, c = P1_SHAPE
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        x, w = (0.3 * rn(bsz, hw, hw, c)).to(dt), (0.05 * rn(3, 3, c, c)).to(dt)
+        zero = torch.zeros(c, device=dev)
+        want = cv.conv3x3_plain(x, w)
+        e = max(check(f"P1 {tag} {P1_SHAPE} -> {c} rows {r} vs plain", cv.conv3x3(x, w, rows=r),
+                      want, *tol[dt]) for r in P1_ROWS)
+        if dt == torch.bfloat16:
+            errs["P1"] = e
+            nbytes = 2 * bsz * hw * hw * c * 2 + 9 * c * c * 2
+            t = (cuda_ms(torch, lambda: cv.conv3x3(x, w)),
+                 cuda_ms(torch, lambda: cv.conv3x3_plain(x, w)),
+                 cuda_ms(torch, lambda: direct(x, w, zero)))
+            timed["P1"] = t + bound(nbytes, 2 * bsz * hw * hw * 9 * c * c, "bf16")
+            print(f"  P1 ms {t[0]:.4f}, plain ms {t[1]:.4f}, F.conv2d ms {t[2]:.4f}, bound ms "
+                  f"{timed['P1'][3]:.4f} ({timed['P1'][4]})", flush=True)
+    return errs, timed
+
+
+def check_attn_variants(dev):
+    """Phase 2, P2 at (8, 4096, 192), 6 heads, each softmax mode against
+    its plain version in bf16 and f32; in f32 the f32 mode against kernel
+    A's y too (they differ only where the folded shift of 30 rounds).
+    Returns (max bf16 error, {mode: (ms, plain ms, bound ms, bound by)})
+    timed in bf16."""
+    import torch
+
+    from resshift_tpu_torch.ops import attn_variants as av, swin_block as sb
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    bsz, t, c, nh, n = BSZ, 4096, C, NH, N
+    tol = {torch.bfloat16: (2 ** -6, 1e-3), torch.float32: (1e-4, 1e-5)}
+    nbytes = 2 * bsz * t * c * 2 + (4 * c * c + 4 * c) * 2 + 2 * bsz * c * 4 + nh * n * n * 4
+    ops = bsz * t // n * (2 * n * c * 3 * c + 4 * n * n * c + 2 * n * c * c)
+    err, timed = 0.0, {}
+    for dt in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        x = rn(bsz, t, c).to(dt)
+        wa, ba = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c))
+        wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+               (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+        args = (x, wa, ba, *wts, 0.02 * rn(1, nh, n, n), nh, n)
+        for sm in av.SOFTMAX_MODES:
+            fk = lambda: av.attn_variant(*args, sm)
+            fp = lambda: av.attn_variant_plain(*args, sm)
+            got = fk()
+            e = check(f"P2 {tag} {sm} ({bsz}, {t}, {c})", got, fp(), *tol[dt])
+            if dt == torch.bfloat16:
+                err = max(err, e)
+                timed[sm] = (cuda_ms(torch, fk), cuda_ms(torch, fp)) + bound(nbytes, ops, "bf16")
+                print(f"  P2 {sm} ms {timed[sm][0]:.4f}, plain ms {timed[sm][1]:.4f}", flush=True)
+            elif sm == "f32":
+                check("P2 f32 f32-mode vs kernel A's y", got,
+                      sb.norm_attn_residual_stats(*args)[0], *tol[dt])
+    return err, timed
+
+
+def run_tools(root: Path) -> dict:
+    """Phase 12: each tool of TOOL_RUNS in its own process on the card, at its
+    full width with two timed calls; each must exit 0 and launch its kernels.
+    Returns {kernel name: launches} summed over the tools."""
+    counts: dict[str, int] = {}
+    for name, args, kernels in TOOL_RUNS:
+        cmd = [sys.executable, "-m", f"resshift_tpu_torch.tools.{name}", *args, "--n-iter", "2",
+               "--reps", "1"]
+        t1 = time.perf_counter()
+        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"{name} failed (rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
+        lines = r.stdout.strip().splitlines()
+        out = json.loads(lines[-1])
+        for line in lines[:-1]:
+            print(f"  {name}: {line}", flush=True)
+        got = {k: v["launches"] for k, v in out["launches"].items()}
+        print(f"  {name}: {time.perf_counter() - t1:.1f} s with start-up, launches {got}, on "
+              f"{out['device']['card']}", flush=True)
+        if not all(got.get(k, 0) > 0 for k in kernels):
+            raise AssertionError(f"{name} launched {got}; it must launch {kernels}")
+        for k, v in got.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
+
+
 def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = False) -> dict:
     """Kernel launches of one sample call at one (lat_h, lat_w) latent tile,
     from the UNet's structure: a BasicLayer of `swin_depth` blocks after the
@@ -423,11 +632,12 @@ def read_launches(kernels: dict, sb) -> dict:
 
 def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     """The `kernels` report: each kernel's launches in its main path (the
-    whole photo of phase 6 for A-E, the face of phase 9 for F; every sample
-    phase under `launches_by_phase`), its bf16 error and times from phase 2,
-    and its bound at the timed shapes (bytes: each input read once, each
-    output written once); F at the f8 decoder tail, with every timed shape
-    under `by_shape`."""
+    whole photo of phase 6 for A-E, the face of phase 9 for F, the tools of
+    phase 12 for K9, K10, P1 and P2; every phase under `launches_by_phase`),
+    its bf16 error and times from phase 2, and its bound at the timed shapes
+    (bytes: each input read once, each output written once); F at the f8
+    decoder tail, K10 at unet res@64, each with every timed shape under
+    `by_shape`; P2 in its f32 mode, every mode under `by_mode`."""
     nh, n, c, hidden, bsz = NH, N, C, HIDDEN, BSZ
     s2 = 2  # bf16 bytes
     t, nw = 4096, 4096 // n
@@ -467,6 +677,34 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
                      "launches_by_phase": {ph: n[key] for ph, n in launches.items()}})
     rows[-1]["by_shape"] = {shape: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by"), t)) for shape, t in tails.items()}
+
+    # the profiling entry points' kernels: launched in phase 12 (the tools)
+    k10 = {k[4:]: t for k, t in timed.items() if k.startswith("K10 ")}
+    p2 = timed["P2"]
+    probes = {
+        "K9": ("resshift_tpu_torch/csrc/window_attn.cu",
+               "resshift_tpu/ops/swin_attention_pallas.py:197 (K9, _forward_pallas :158)",
+               errs["K9"], timed["K9"]),
+        "K10": ("resshift_tpu_torch/csrc/winograd_conv3x3.cu",
+                "resshift_tpu/ops/winograd.py:272 (K10, winograd_conv3x3 :237)",
+                max(errs[f"K10 {k}"] for k in k10), k10[K10_SHAPES[0][0]]),
+        "P1": ("resshift_tpu_torch/csrc/conv3x3.cu",
+               "tools/profile_conv_pallas.py:78 (P1, conv3x3_pallas :69)", errs["P1"],
+               timed["P1"]),
+        "P2": ("resshift_tpu_torch/csrc/attn_variants.cu",
+               "tools/profile_attn_variants.py:106 (P2, call_variant :99)", errs["P2"],
+               p2["f32"][:2] + (None,) + p2["f32"][2:]),
+    }
+    for key, (src, repl, err, (ms, plain_ms, lib_ms, b_ms, b_by)) in probes.items():
+        rows.append({"name": PROBE_KERNELS[key], "route": "cuda", "source": src,
+                     "replaces": repl, "launches": launches["12"][key], "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms,
+                     "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}})
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    rows[-3]["by_shape"] = {label: dict(zip(keys, t)) for label, t in k10.items()}
+    rows[-1]["by_mode"] = {sm: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
+                           for sm, t in p2.items()}
     return rows
 
 
@@ -510,6 +748,11 @@ def main() -> int:
     timed["E"], errs["E"] = check_shift(dev), 0.0
     timed["wide block"] = check_wide_block(dev)
     errs["F"], timed["F"] = check_tail(dev)
+    errs["K9"], timed["K9"] = check_window_attention(dev)
+    conv_errs, conv_timed = check_conv_probes(dev)
+    errs.update(conv_errs)
+    timed.update(conv_timed)
+    errs["P2"], timed["P2"] = check_attn_variants(dev)
 
     # ---------------------------------------------------------------- 3
     print("phase 3: realsr_v1, full width, bf16, 15 steps, batch 8 of 64x64", flush=True)
@@ -816,6 +1059,14 @@ def main() -> int:
         cli_infer(["--task", "realsr", "--scale", "2"], tmp / "x2", tmp / "x2_out")
         for n, (h, w) in x2_sizes.items():
             read_output(tmp / "x2_out" / f"{n}.png", (2 * h, 2 * w, 3))
+
+    # ---------------------------------------------------------------- 12
+    print("phase 12: the port's tools in subprocesses (full width, 2 timed calls each)",
+          flush=True)
+    counts = run_tools(ROOT)
+    launches["12"] = {key: counts.get(kern.name, 0) for key, kern in all_kernels.items()}
+    launches["12"].update({key: counts.get(name, 0) for key, name in PROBE_KERNELS.items()})
+    print(f"  launches in phase 12: {launches['12']}", flush=True)
 
     print(json.dumps({"kernels": kernel_rows(launches, errs, timed)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

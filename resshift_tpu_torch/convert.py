@@ -187,15 +187,20 @@ def from_flax(params: Mapping, which: str, **cfg) -> dict[str, np.ndarray]:
     channel_mult, num_res_blocks, attention_resolutions, swin_depth, and
     cond_lq with lq_size for the LQ feature pyramid, which is mapped when
     lq_size is given and differs from image_size; others are ignored);
-    which='vqgan' takes ch_mult and num_res_blocks (f4 and f8)."""
+    which='vqgan' takes ch_mult and num_res_blocks (f4 and f8);
+    which='window_attention' maps a standalone WindowAttention."""
     flat = _flatten(params)
     sd: dict[str, np.ndarray] = {}
     if which == "unet":
         _walk_unet_swin(flat, sd, **cfg)
     elif which == "vqgan":
         _walk_vqgan(flat, sd, **cfg)
+    elif which == "window_attention":
+        _emit(flat, sd, "relative_position_bias_table", ("relative_position_bias_table",), "raw")
+        _emit(flat, sd, "qkv", ("qkv",), "linear")
+        _emit(flat, sd, "proj", ("proj",), "linear")
     else:
-        raise ValueError(f"which must be 'unet' or 'vqgan', not {which!r}")
+        raise ValueError(f"which must be 'unet', 'vqgan' or 'window_attention', not {which!r}")
     return sd
 
 

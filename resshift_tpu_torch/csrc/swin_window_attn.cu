@@ -20,6 +20,7 @@
 // (sum, sumsq) partial and a second small pass adds them per image in a
 // fixed order, so the low bits do not change from run to run.  The TPU
 // kernel's grouping of windows into 128-token MXU tiles is not carried over.
+// The heads (steps 2-5) are window_heads.cuh, shared with K9 and P2.
 //
 // Softmax: a true softmax (row max subtracted, divided by the row sum), as in
 // the plain version; the TPU kernel's exp(clip(s + B - 30)) form with a ones
@@ -31,11 +32,11 @@
 // 22 MFLOP per window against 24 KB of x and y, so the tensor-core bound is
 // far below what these FMA loops reach; the kernel is bound by issuing
 // shared-memory loads and FMAs (see PERF.md for the measured time).
-#include "common.cuh"
+#include "window_heads.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = WH_THREADS;
 
 struct AttnArgs {
   const void* x;
@@ -55,24 +56,19 @@ struct AttnArgs {
 template <typename T>
 __global__ void __launch_bounds__(THREADS) swin_window_attn_kernel(AttnArgs a) {
   extern __shared__ float smem[];
-  const int C = a.C, N = a.N, nh = a.nh, hd = C / nh;
-  const int ldx = C + 1, ldq = 3 * hd + 1, lds = N + 1;
-  float* xs = smem;           // N x ldx: normalized tokens, later the output
-  float* qs = xs + N * ldx;   // N x ldq: q | k | v of one head
-  float* ss = qs + N * ldq;   // N x lds: scores, then probabilities
-  float* os = ss + N * lds;   // N x ldx: attention output before proj
+  const int C = a.C, N = a.N, nh = a.nh;
+  const WinSmem s = win_smem(smem, N, C, nh);
+  float* xs = s.xs;  // normalized tokens, later the output
+  const int ldx = s.ldx;
 
   const int nwin = a.T / N;
   const int bi = blockIdx.x / nwin, win = blockIdx.x % nwin;
   const T* x = (const T*)a.x + (size_t)bi * a.T * C;
   T* y = (T*)a.y + (size_t)bi * a.T * C;
-  const T* wqkv = (const T*)a.wqkv;
-  const T* bqkv = (const T*)a.bqkv;
   const T* wproj = (const T*)a.wproj;
   const T* bproj = (const T*)a.bproj;
   const float* gw = a.w + (size_t)bi * C;
   const float* gb = a.b + (size_t)bi * C;
-  const float scale = rnd<T>((float)(1.0 / sqrt((double)hd)));
 
   // 1. GroupNorm affine, reading through the roll when shifted
   for (int i = threadIdx.x; i < N * C; i += THREADS) {
@@ -82,60 +78,13 @@ __global__ void __launch_bounds__(THREADS) swin_window_attn_kernel(AttnArgs a) {
   }
   __syncthreads();
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int h = 0; h < nh; ++h) {
-    // 2. q, k, v of head h
-    block_mm(N, 3 * hd, C,
-        [&](int r, int k) { return xs[r * ldx + k]; },
-        [&](int k, int c) {
-          return to_f(wqkv[(size_t)k * 3 * C + (c / hd) * C + h * hd + c % hd]);
-        },
-        [&](int r, int c, float acc) {
-          const int part = c / hd;
-          float v = rnd<T>(rnd<T>(acc) + to_f(bqkv[part * C + h * hd + c % hd]));
-          if (part == 0) v = rnd<T>(v * scale);
-          qs[r * ldq + c] = v;
-        });
-    __syncthreads();
-
-    // 3. scores plus the rel-pos bias (and shift mask) of this window
-    const float* bmh = a.bm + ((size_t)(a.nwb == 1 ? 0 : win) * nh + h) * N * N;
-    block_mm(N, N, hd,
-        [&](int r, int k) { return qs[r * ldq + k]; },
-        [&](int k, int c) { return qs[c * ldq + hd + k]; },
-        [&](int r, int c, float acc) {
-          ss[r * lds + c] = rnd<T>(rnd<T>(acc) + rnd<T>(bmh[r * N + c]));
-        });
-    __syncthreads();
-
-    // 4. softmax over each row in f32, one warp per row
-    for (int r = warp; r < N; r += THREADS / 32) {
-      float* row = ss + r * lds;
-      float m = -INFINITY;
-      for (int c = lane; c < N; c += 32) m = fmaxf(m, row[c]);
-      for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      float sum = 0.f;
-      for (int c = lane; c < N; c += 32) {
-        const float e = expf(row[c] - m);
-        row[c] = e;
-        sum += e;
-      }
-      for (int o = 16; o; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      for (int c = lane; c < N; c += 32) row[c] = rnd<T>(row[c] / sum);
-    }
-    __syncthreads();
-
-    // 5. probabilities times v into this head's columns
-    block_mm(N, hd, N,
-        [&](int r, int k) { return ss[r * lds + k]; },
-        [&](int k, int c) { return qs[k * ldq + 2 * hd + c]; },
-        [&](int r, int c, float acc) { os[r * ldx + h * hd + c] = rnd<T>(acc); });
-    __syncthreads();
-  }
+  // 2-5. q, k, v, biased scores, softmax and p v of every head
+  window_heads<T, SM_F32, true>(s, N, C, nh, (const T*)a.wqkv, (const T*)a.bqkv,
+                                a.bm + (size_t)(a.nwb == 1 ? 0 : win) * nh * N * N);
 
   // 6. output projection and residual (the rolled input when shifted)
   block_mm(N, C, C,
-      [&](int r, int k) { return os[r * ldx + k]; },
+      [&](int r, int k) { return s.os[r * ldx + k]; },
       [&](int k, int c) { return to_f(wproj[(size_t)k * C + c]); },
       [&](int r, int c, float acc) {
         const int j = win * N + r;
@@ -154,9 +103,7 @@ __global__ void __launch_bounds__(THREADS) swin_window_attn_kernel(AttnArgs a) {
 
 template <typename T>
 cudaError_t launch(const AttnArgs& a, int B, float* s, float* q, cudaStream_t st) {
-  const int hd = a.C / a.nh;
-  const size_t smem = sizeof(float) * (size_t)a.N *
-                      (2 * (a.C + 1) + (3 * hd + 1) + (a.N + 1));
+  const size_t smem = sizeof(float) * win_smem_floats(a.N, a.C, a.nh);
   cudaError_t e = allow_smem(swin_window_attn_kernel<T>, smem);
   if (e != cudaSuccess) return e;
   swin_window_attn_kernel<T><<<B * (a.T / a.N), THREADS, smem, st>>>(a);

@@ -44,13 +44,15 @@ class Conv2d(nn.Conv2d):
 class Linear(nn.Linear):
     """nn.Linear computing in `compute_dtype`."""
 
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
-        super().__init__(cin, cout)
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32,
+                 bias: bool = True):
+        super().__init__(cin, cout, bias=bias)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class GroupNorm32(nn.Module):

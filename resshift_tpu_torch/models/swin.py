@@ -24,10 +24,12 @@ import torch.nn as nn
 from ..ops import shift as shift_ops
 from ..ops import swin_block as sb
 from ..ops.swin_block import shift_permutation
+from ..ops.window_attention import window_attention
 from .layers import Conv2d, GroupNorm32, Linear
 
 __all__ = ["window_partition_tokens", "window_reverse_tokens", "relative_position_index",
-           "shift_permutation", "shifted_window_mask", "SwinTransformerBlock", "BasicLayer"]
+           "shift_permutation", "shifted_window_mask", "WindowAttention", "SwinTransformerBlock",
+           "BasicLayer"]
 
 
 def window_partition_tokens(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -78,16 +80,49 @@ def shifted_window_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
 
 
 class _WindowAttentionParams(nn.Module):
-    def __init__(self, dim: int, window_size: int, num_heads: int, dtype: torch.dtype):
+    def __init__(self, dim: int, window_size: int, num_heads: int, dtype: torch.dtype,
+                 qkv_bias: bool = True):
         super().__init__()
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02)
-        self.qkv = Linear(dim, 3 * dim, dtype=dtype)
+        self.qkv = Linear(dim, 3 * dim, dtype=dtype, bias=qkv_bias)
         self.proj = Linear(dim, dim, dtype=dtype)
         self.register_buffer("relative_position_index",
                              torch.as_tensor(relative_position_index(window_size).reshape(-1)),
                              persistent=False)
+
+
+class WindowAttention(_WindowAttentionParams):
+    """W-MSA / SW-MSA over (B*nW, N, C) windows, the reference's
+    WindowAttention (swin_transformer.py:65-161) with its parameter layout.
+    It runs `ops/window_attention.window_attention`: kernel K9 on a CUDA
+    tensor, the plain version on a CPU one.  A custom `qk_scale` is folded
+    into the q columns of the qkv weight and bias, as the JAX package does."""
+
+    def __init__(self, dim: int, window_size: int, num_heads: int, qkv_bias: bool = True,
+                 qk_scale: float | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, window_size, num_heads, dtype, qkv_bias)
+        self.num_heads, self.qk_scale, self.dtype = num_heads, qk_scale, dtype
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """x: (B*nW, N, C); mask: (nW, N, N) additive (the shifted-window
+        mask) or None."""
+        _, n, c = x.shape
+        nh, dt = self.num_heads, self.dtype
+        bias = self.relative_position_bias_table[self.relative_position_index]
+        bias = bias.reshape(n, n, nh).permute(2, 0, 1)[None]
+        if mask is not None:
+            bias = bias + mask[:, None]
+        wqkv = self.qkv.weight.t()
+        bqkv = (self.qkv.bias if self.qkv.bias is not None
+                else torch.zeros(3 * c, device=wqkv.device))
+        if self.qk_scale is not None:
+            ratio = torch.ones(3 * c, device=wqkv.device)
+            ratio[:c] = self.qk_scale / (c // nh) ** -0.5
+            wqkv, bqkv = wqkv * ratio, bqkv * ratio
+        return window_attention(x, wqkv.to(dt), bqkv.to(dt), self.proj.weight.t().to(dt),
+                                self.proj.bias.to(dt), bias.float(), nh)
 
 
 class _MlpParams(nn.Module):

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from .. import _ext
 from .._ext import I, P
+from .window_attention import window_attention_plain
 
 __all__ = ["token_stats", "fold_stats", "gn_fold", "shift_permutation", "shift_fuse_fits",
            "norm_attn_residual_plain", "norm_mlp_residual_plain",
@@ -104,30 +105,14 @@ def _take(x: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
 
 # --------------------------------------------------------- plain versions
 
-def _rounded(v: float, dt: torch.dtype) -> float:
-    """`v` rounded to `dt`: a Python scalar times a low-precision array
-    rounds the scalar first in JAX; torch would keep it in f32."""
-    return float(torch.tensor(v, dtype=dt))
-
-
 def norm_attn_residual_plain(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask,
                              num_heads: int, n_win: int) -> torch.Tensor:
     """x + proj(softmax(q k^T hd^-1/2 + B) v), q, k, v = (x*w + b) Wqkv + bqkv.
     x: (B, T, C); bias_mask: (nW or 1, nh, N, N) f32; softmax in f32."""
     bsz, t, c = x.shape
-    nh, hd = num_heads, c // num_heads
-    dt = x.dtype
-    xn = (x.float() * w[:, None] + b[:, None]).to(dt)
-    m = bsz * t // n_win
-    qkv = xn.reshape(m, n_win, c) @ wqkv.to(dt) + bqkv.to(dt)
-    qkv = qkv.reshape(m, n_win, 3, nh, hd).permute(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
-    attn = (q * _rounded(hd**-0.5, dt)) @ k.transpose(-1, -2)
-    nw = bias_mask.shape[0]
-    attn = attn.reshape(m // nw, nw, nh, n_win, n_win) + bias_mask[None].to(dt)
-    attn = torch.softmax(attn.reshape(m, nh, n_win, n_win).float(), dim=-1).to(dt)
-    out = (attn @ v).transpose(1, 2).reshape(m, n_win, c)
-    out = out @ wproj.to(dt) + bproj.to(dt)
+    xn = (x.float() * w[:, None] + b[:, None]).to(x.dtype)
+    out = window_attention_plain(xn.reshape(bsz * t // n_win, n_win, c), wqkv, bqkv, wproj,
+                                 bproj, bias_mask, num_heads)
     return x + out.reshape(bsz, t, c)
 
 

@@ -1,0 +1,67 @@
+"""Splits the window attention's cost on the card between its matrix
+products and its softmax.
+
+Times kernel A (`production`: `swin_block.norm_attn_residual_stats`, the
+GroupNorm affine, W-MSA, residual and statistics) against probe P2
+(`attn_variants.attn_variant`, the same without statistics) with each of
+its five softmaxes (f32, mxsum, bf16exp, noexp, none), at (64, 4096, 192)
+bf16, 6 heads, 8x8 windows.
+
+    python -m resshift_tpu_torch.tools.profile_attn_variants
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from . import add_common_args, emit, pick_device, time_ms
+from ..ops import attn_variants as av
+from ..ops import swin_block as sb
+
+__all__ = ["main"]
+
+HW, C, NH, WS = 64, 192, 6, 8
+N = WS * WS
+DT = torch.bfloat16
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--batch", type=int, default=64)
+    add_common_args(ap, n_iter=32)
+    args = ap.parse_args(argv)
+    dev = pick_device(args.device)
+    bsz, t = args.batch, HW * HW
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = (0.5 * torch.randn(bsz, t, C, generator=g, device=dev)).to(DT)
+    w, b = torch.ones(bsz, C, device=dev), torch.zeros(bsz, C, device=dev)
+    wqkv = (0.05 * torch.randn(C, 3 * C, generator=g, device=dev)).to(DT)
+    wproj = (0.05 * torch.randn(C, C, generator=g, device=dev)).to(DT)
+    bqkv, bproj = torch.zeros(3 * C, dtype=DT, device=dev), torch.zeros(C, dtype=DT, device=dev)
+    bm = torch.zeros(1, NH, N, N, device=dev)
+    args_ = (x, w, b, wqkv, bqkv, wproj, bproj, bm, NH, N)
+    for k in (sb.SWIN_WINDOW_ATTN, av.ATTN_VARIANTS):
+        k.reset()
+
+    results = {}
+    with torch.no_grad():
+        y_a = sb.norm_attn_residual_stats(*args_)[0]
+        results["production"] = time_ms(lambda: sb.norm_attn_residual_stats(*args_), dev,
+                                        args.n_iter, args.reps)
+        print(f"{'production':>22}: {results['production']} ms", flush=True)
+        for sm in av.SOFTMAX_MODES:
+            key = f"variant[{sm}]"
+            results[key] = time_ms(lambda: av.attn_variant(*args_, sm), dev, args.n_iter,
+                                   args.reps)
+            print(f"{key:>22}: {results[key]} ms", flush=True)
+        # the f32 mode is A's y by other rounding points
+        diff = (av.attn_variant(*args_, "f32").float() - y_a.float()).abs().max().item()
+        results["f32_vs_production_max_abs_diff"] = diff
+        print(f"variant[f32] vs production: max|diff| {diff:.4e}", flush=True)
+    return emit(dev, results, (sb.SWIN_WINDOW_ATTN, av.ATTN_VARIANTS))
+
+
+if __name__ == "__main__":
+    main()

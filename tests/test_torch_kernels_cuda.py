@@ -13,11 +13,15 @@ import pytest
 import torch
 
 from resshift_tpu_torch.models.swin import shifted_window_mask
+from resshift_tpu_torch.ops import attn_variants as av
+from resshift_tpu_torch.ops import conv3x3 as cv
 from resshift_tpu_torch.ops import flash_attention as fa
 from resshift_tpu_torch.ops import shift
 from resshift_tpu_torch.ops import swin_block as sb
 from resshift_tpu_torch.ops import tail
 from resshift_tpu_torch.ops import vq
+from resshift_tpu_torch.ops import window_attention as wa
+from resshift_tpu_torch.ops import winograd as wg
 
 pytestmark = pytest.mark.cuda
 
@@ -121,6 +125,69 @@ def test_gn_silu_conv3x3_ragged_tiles(gen, dt, b, c, h, w, co):
     assert tail.GN_SILU_CONV3X3.launches == n + 1
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,c,nh,nw", [(37, 16, 48, 3, 1), (24, 64, 192, 6, 8),
+                                         (5, 49, 96, 4, 5)])
+def test_window_attention_ragged(gen, dt, m, n, c, nh, nw):
+    """K9 at window counts that are no multiple of a block, 49-token
+    windows, and a per-window bias; its gradient against plain autograd."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = rn(m, n, c).to(dt)
+    wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+           (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+    bm = 0.2 * rn(nw, nh, n, n)
+    launches = wa.WINDOW_ATTN.launches
+    _close(wa.window_attention(x, *wts, bm, nh), wa.window_attention_plain(x, *wts, bm, nh), dt)
+    assert wa.WINDOW_ATTN.launches == launches + 1
+    if dt == torch.float32:
+        ins = [t.clone().requires_grad_() for t in (x, *wts, bm)]
+        ref = [t.clone().requires_grad_() for t in (x, *wts, bm)]
+        g = rn(m, n, c)
+        wa.window_attention(*ins, nh).backward(g)
+        wa.window_attention_plain(*ref, nh).backward(g)
+        for a, b in zip(ins, ref):
+            _close(a.grad, b.grad, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,co", [(2, 8, 8, 24, 40), (1, 10, 70, 70, 130),
+                                        (3, 16, 34, 160, 8)])
+def test_winograd_ragged(gen, dt, b, h, w, c, co):
+    """K10 with H = W = 8, strips of tiles past the image's edge, channel
+    counts that are no multiple of a chunk and Co blocks cut short."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = (0.3 * rn(b, h, w, c)).to(dt)
+    wk, bias = (rn(3, 3, c, co) / (9 * c) ** 0.5).to(dt), 0.1 * rn(co)
+    for bb in (bias, None):
+        _close(wg.winograd_conv3x3(x, wk, bb), wg.winograd_conv3x3_plain(x, wk, bb), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,co,rows", [(2, 8, 8, 24, 40, None), (1, 13, 70, 70, 130, 1),
+                                             (3, 9, 20, 160, 8, 4), (1, 5, 3, 5, 3, 64)])
+def test_conv3x3_ragged(gen, dt, b, h, w, c, co, rows):
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = (0.3 * rn(b, h, w, c)).to(dt)
+    wk = (rn(3, 3, c, co) / (9 * c) ** 0.5).to(dt)
+    _close(cv.conv3x3(x, wk, rows), cv.conv3x3_plain(x, wk), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softmax", av.SOFTMAX_MODES)
+def test_attn_variants_small_windows(gen, dt, softmax):
+    b, t, c, nh, n = 3, 96, 64, 2, 16
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = rn(b, t, c).to(dt)
+    wa_, ba = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c))
+    wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+           (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+    bm = 0.02 * rn(t // n, nh, n, n)
+    got = av.attn_variant(x, wa_, ba, *wts, bm, nh, n, softmax)
+    _close(got, av.attn_variant_plain(x, wa_, ba, *wts, bm, nh, n, softmax), dt)
+    if softmax == "f32" and dt == torch.float32:  # kernel A's y, but for the folded shift
+        _close(got, sb.norm_attn_residual_stats(x, wa_, ba, *wts, bm, nh, n)[0], dt)
+
+
 def test_wrappers_raise_on_unsupported_shapes(gen):
     q = torch.zeros(1, 64, 256, device="cuda")
     with pytest.raises(ValueError):
@@ -136,3 +203,27 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
     with pytest.raises(TypeError):
         tail.gn_silu_conv3x3(x.half(), g, g, torch.ones(3, 16, 3, 3, device="cuda"),
                              torch.ones(3, device="cuda"), use_pallas=True)
+    xw = torch.zeros(4, 16, 32, device="cuda")
+    with pytest.raises(ValueError):  # 3 windows of bias for 4 windows
+        wa.window_attention(xw, torch.zeros(32, 96, device="cuda"), torch.zeros(96, device="cuda"),
+                            torch.zeros(32, 32, device="cuda"), torch.zeros(32, device="cuda"),
+                            torch.zeros(3, 2, 16, 16, device="cuda"), 2)
+    with pytest.raises(ValueError):  # odd H
+        wg.winograd_conv3x3(torch.zeros(1, 7, 8, 16, device="cuda"),
+                            torch.zeros(3, 3, 16, 16, device="cuda"))
+    with pytest.raises(TypeError):
+        wg.winograd_conv3x3(torch.zeros(1, 8, 8, 16, device="cuda").half(),
+                            torch.zeros(3, 3, 16, 16, device="cuda"))
+    with pytest.raises(ValueError):  # rows must divide 64
+        cv.conv3x3(torch.zeros(1, 8, 8, 16, device="cuda"),
+                   torch.zeros(3, 3, 16, 16, device="cuda"), rows=3)
+    xt = torch.zeros(1, 64, 32, device="cuda")
+    aw, ab = torch.ones(1, 32, device="cuda"), torch.zeros(1, 32, device="cuda")
+    attn_w = (torch.zeros(32, 96, device="cuda"), torch.zeros(96, device="cuda"),
+              torch.zeros(32, 32, device="cuda"), torch.zeros(32, device="cuda"))
+    with pytest.raises(ValueError):  # unknown softmax
+        av.attn_variant(xt, aw, ab, *attn_w, torch.zeros(1, 2, 16, 16, device="cuda"), 2, 16,
+                        "softmax2")
+    with pytest.raises(ValueError):  # 72 tokens are no whole number of 16-token windows
+        av.attn_variant(torch.zeros(1, 72, 32, device="cuda"), aw, ab, *attn_w,
+                        torch.zeros(1, 2, 16, 16, device="cuda"), 2, 16)
