@@ -22,15 +22,16 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "build_all", "dtype_code", "P", "I"]
+__all__ = ["Kernel", "aligned16", "build_all", "dtype_code", "P", "I"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
-_SOURCES = ("swin_window_attn", "swin_mlp", "flash_attn_1h", "vq_nearest", "shift_tokens",
-            "gn_silu_conv3x3", "window_attn", "winograd_conv3x3", "conv3x3", "attn_variants")
+_SOURCES = ("swin_window_attn", "swin_mlp", "swin_mlp_tc", "flash_attn_1h", "flash_attn_1h_tc",
+            "vq_nearest", "shift_tokens", "gn_silu_conv3x3", "window_attn", "winograd_conv3x3",
+            "conv3x3", "attn_variants")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
@@ -98,6 +99,12 @@ def dtype_code(dt: torch.dtype) -> int:
     if dt == torch.bfloat16:
         return 1
     raise TypeError(f"the CUDA kernels take float32 or bfloat16, not {dt}")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """`t` (contiguous), copied if its data does not start on a 16-byte
+    boundary, as the kernels' 16-byte `cp.async` loads need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 class Kernel:

@@ -1,5 +1,6 @@
-// Kernel C: single-head attention softmax(q k^T / sqrt(C)) v over (B, N, C)
-// with C = 512, the VQGAN encoder's and decoder's middle AttnBlock.
+// Kernel C, f32 route: single-head attention softmax(q k^T / sqrt(C)) v over
+// (B, N, C) f32 with C = 512, the VQGAN encoder's and decoder's middle
+// AttnBlock.  The bf16 route (the main path's) is flash_attn_1h_tc.cu.
 //
 // Replaces the TPU kernel resshift_tpu/ops/flash_attention_pallas.py
 // `flash_attention_1h`.
@@ -21,8 +22,10 @@
 //
 // Bound on the H100 at the main path's shapes (q, k, v (8, 4096, 512) bf16):
 // 4 N^2 C = 275 GFLOP per call against 134 MB of q, k, v and out, so the
-// tensor-core rate bounds it (0.28 ms); these f32 FMA loops are bound by
-// shared-memory load issue (see PERF.md for the measured time).
+// tensor-core rate bounds it (0.28 ms in bf16); these f32 FMA loops are
+// bound by shared-memory load issue (see PERF.md for the measured time).
+// f32 has no full-rate tensor-core path (TF32 would not hold the f32 bands),
+// so this route stays on the FMA units.
 #include "common.cuh"
 
 namespace {
@@ -158,7 +161,6 @@ extern "C" int flash_attn_1h(const void* q, const void* k, const void* v, void* 
                              int B, int N, int C, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (C != 512) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_BF16) return (int)launch<bf16>(q, k, v, o, B, N, st);
   if (dtype == DT_F32) return (int)launch<float>(q, k, v, o, B, N, st);
   return (int)cudaErrorInvalidValue;
 }

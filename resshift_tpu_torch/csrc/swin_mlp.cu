@@ -1,6 +1,7 @@
-// Kernel B: fused GroupNorm affine + channel MLP (fc1, exact-erf GELU, fc2)
-// + residual + output statistics over (B, T, C) window-major tokens,
-// optionally reading the shifted layout and writing the unshifted one.
+// Kernel B, f32 route: fused GroupNorm affine + channel MLP (fc1, exact-erf
+// GELU, fc2) + residual + output statistics over (B, T, C) window-major f32
+// tokens, optionally reading the shifted layout and writing the unshifted
+// one.  The bf16 route (the main path's) is swin_mlp_tc.cu.
 //
 // Replaces the TPU kernels resshift_tpu/ops/swin_block_pallas.py
 // `_norm_mlp_residual_fwd_pallas` (K2, via norm_mlp_residual_stats) and
@@ -25,7 +26,9 @@
 // Bound on the H100 at the main path's shapes (x (8, 4096, 192) bf16): 0.59
 // MFLOP per token against 768 bytes of x and y, so the tensor-core rate would
 // bound it; these FMA loops are bound by issuing shared-memory loads and
-// FMAs (see PERF.md for the measured time).
+// FMAs (see PERF.md for the measured time).  f32 has no full-rate
+// tensor-core path (TF32 would not hold the f32 bands), so this route stays
+// on the FMA units.
 #include "common.cuh"
 
 namespace {
@@ -139,7 +142,6 @@ extern "C" int swin_mlp(const void* x, const void* w, const void* b, const void*
             (float*)part_q, T, C, hidden, hc, ws, H, W, shift};
   cudaStream_t st = (cudaStream_t)stream;
   if (hidden % 64) return (int)cudaErrorInvalidValue;
-  if (dtype == DT_BF16) return (int)launch<bf16>(a, B, (float*)s, (float*)q, st);
   if (dtype == DT_F32) return (int)launch<float>(a, B, (float*)s, (float*)q, st);
   return (int)cudaErrorInvalidValue;
 }

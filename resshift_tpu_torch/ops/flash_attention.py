@@ -1,9 +1,11 @@
 """Single-head attention for the VQGAN middle `AttnBlock`.
 
-Kernel C `flash_attn_1h` (csrc/flash_attn_1h.cu) replaces the TPU kernel
-`flash_attention_pallas.flash_attention_1h`.  The wrapper runs the plain
-PyTorch version for a CPU tensor, launches the kernel for a CUDA tensor,
-and raises for anything else.
+Kernel C replaces the TPU kernel `flash_attention_pallas.flash_attention_1h`
+in two routes, chosen by dtype: bf16 (the main path's) on the tensor cores
+(`flash_attn_1h_tc`, csrc/flash_attn_1h_tc.cu), f32 on the FMA units
+(`flash_attn_1h`, csrc/flash_attn_1h.cu).  The wrapper runs the plain
+PyTorch version for a CPU tensor, launches the kernel of the tensor's
+dtype for a CUDA tensor, and raises for anything else.
 """
 
 from __future__ import annotations
@@ -13,9 +15,11 @@ import torch
 from .. import _ext
 from .._ext import I, P
 
-__all__ = ["attention_plain", "chunked_attention_plain", "flash_attention_1h", "FLASH_ATTN_1H"]
+__all__ = ["attention_plain", "chunked_attention_plain", "flash_attention_1h", "FLASH_ATTN_1H",
+           "FLASH_ATTN_1H_TC"]
 
-FLASH_ATTN_1H = _ext.Kernel("flash_attn_1h", [P] * 4 + [I] * 4)
+FLASH_ATTN_1H = _ext.Kernel("flash_attn_1h", [P] * 4 + [I] * 4)  # f32, FMA
+FLASH_ATTN_1H_TC = _ext.Kernel("flash_attn_1h_tc", [P] * 4 + [I] * 2)  # bf16, tensor cores
 
 
 def _scaled_q(q: torch.Tensor) -> torch.Tensor:
@@ -47,8 +51,11 @@ def flash_attention_1h(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     b, n, c = q.shape
     if k.shape != q.shape or v.shape != q.shape or c != 512:
         raise ValueError(f"flash_attn_1h takes (B, N, 512) q, k, v; got {tuple(q.shape)}")
-    q, k, v = (t.to(q.dtype).contiguous() for t in (q, k, v))
+    q, k, v = (_ext.aligned16(t.to(q.dtype).contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
-    FLASH_ATTN_1H(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  _ext.dtype_code(q.dtype), b, n, c)
+    if q.dtype == torch.bfloat16:
+        FLASH_ATTN_1H_TC(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n)
+    else:  # float32; dtype_code raises for any other type
+        FLASH_ATTN_1H(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      _ext.dtype_code(q.dtype), b, n, c)
     return out

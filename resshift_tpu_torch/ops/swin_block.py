@@ -7,8 +7,10 @@ Two kernels carry the block on the GPU (csrc/):
   * A `swin_window_attn` replaces the TPU kernels
     `swin_block_pallas._norm_attn_residual_fwd_pallas` (K1) and
     `_shift_attn_fwd_pallas` (K3, the shifted-window read);
-  * B `swin_mlp` replaces `_norm_mlp_residual_fwd_pallas` (K2) and
-    `_mlp_unshift_fwd_pallas` (K4, the unshifted write).
+  * B replaces `_norm_mlp_residual_fwd_pallas` (K2) and
+    `_mlp_unshift_fwd_pallas` (K4, the unshifted write), in two routes
+    chosen by dtype: bf16 (the main path's) on the tensor cores
+    (`swin_mlp_tc`), f32 on the FMA units (`swin_mlp`).
 Each wrapper runs the plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor, and raises for anything else.  The plain
 versions repeat the JAX package's `*_xla` compositions op for op,
@@ -33,12 +35,13 @@ __all__ = ["token_stats", "fold_stats", "gn_fold", "shift_permutation", "shift_f
            "norm_mlp_residual_stats_plain", "mlp_unshift_residual_stats_plain",
            "norm_attn_residual_stats", "shift_attn_residual_stats",
            "norm_mlp_residual_stats", "mlp_unshift_residual_stats",
-           "SWIN_WINDOW_ATTN", "SWIN_MLP"]
+           "SWIN_WINDOW_ATTN", "SWIN_MLP", "SWIN_MLP_TC"]
 
 SWIN_WINDOW_ATTN = _ext.Kernel("swin_window_attn", [P] * 13 + [I] * 11)
-SWIN_MLP = _ext.Kernel("swin_mlp", [P] * 12 + [I] * 9)
+SWIN_MLP = _ext.Kernel("swin_mlp", [P] * 12 + [I] * 9)  # f32, FMA
+SWIN_MLP_TC = _ext.Kernel("swin_mlp_tc", [P] * 12 + [I] * 8)  # bf16, tensor cores
 
-_ROWS = 64  # token rows per CTA of kernel B (csrc/swin_mlp.cu)
+_ROWS = 64  # token rows per CTA of kernel B, both routes (csrc/swin_mlp*.cu)
 
 
 # ------------------------------------------------------------------ GN fold
@@ -207,20 +210,29 @@ def _attn_kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win,
 def _mlp_kernel(x, w, b, w1, b1, w2, b2, geom):
     bsz, t, c = _check_tokens(x)
     hidden = w1.shape[1]
-    if c > 256 or w1.shape != (c, hidden) or w2.shape != (hidden, c) or hidden % 64:
-        raise ValueError(f"swin_mlp: unsupported shapes x={tuple(x.shape)} w1={tuple(w1.shape)}")
-    ws, h, wd, shift = (0, 0, 0, 0) if geom is None else _geometry(t, geom[2] ** 2, geom)
     dt = x.dtype
+    tc = dt == torch.bfloat16  # the tensor-core route takes C % 16 == 0
+    if (c > 256 or w1.shape != (c, hidden) or w2.shape != (hidden, c) or hidden % 64
+            or (tc and c % 16)):
+        raise ValueError(f"swin_mlp: unsupported shapes x={tuple(x.shape)} w1={tuple(w1.shape)}"
+                         f" for {dt}")
+    ws, h, wd, shift = (0, 0, 0, 0) if geom is None else _geometry(t, geom[2] ** 2, geom)
     args = [_cast(a, torch.float32) for a in (w, b)]
     args += [_cast(a, dt) for a in (w1, b1, w2, b2)]
+    if tc:
+        x, args[2], args[4] = (_ext.aligned16(a) for a in (x, args[2], args[4]))
     y = torch.empty_like(x)
     nparts = -(-t // _ROWS)
     part = torch.empty(2, bsz, nparts, c, dtype=torch.float32, device=x.device)
     stats = torch.empty(2, bsz, c, dtype=torch.float32, device=x.device)
-    SWIN_MLP(x.data_ptr(), *(a.data_ptr() for a in args), y.data_ptr(),
-             part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-             _ext.dtype_code(dt), bsz, t, c, hidden, ws, h, wd, shift,
-             variant="unshift" if geom else "plain")
+    ptrs = [x.data_ptr(), *(a.data_ptr() for a in args), y.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr()]
+    variant = "unshift" if geom else "plain"
+    if tc:
+        SWIN_MLP_TC(*ptrs, bsz, t, c, hidden, ws, h, wd, shift, variant=variant)
+    else:  # float32; dtype_code raises for any other type
+        SWIN_MLP(*ptrs, _ext.dtype_code(dt), bsz, t, c, hidden, ws, h, wd, shift,
+                 variant=variant)
     return y, stats[0], stats[1]
 
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at shapes off the main path (small windows, ragged tiles, other
-widths, unaligned views), in float32 and bfloat16.
+widths, unaligned views), in float32 and bfloat16; for kernels B and C,
+which launch a tensor-core kernel in bf16 and an FMA kernel in f32, also
+which route ran.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Where there is a card, run
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -81,11 +83,50 @@ def test_swin_halves_small_windows(gen, dt, shift):
         _close(g_, w_, dt)
 
 
+def _routes(kernels):
+    return [k.launches for k in kernels]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_flash_attention_ragged_tokens(gen, dt):
-    q, k, v = (torch.randn(2, 1000, 512, generator=gen, device="cuda").to(dt)
+@pytest.mark.parametrize("n", [1000, 4096 + 37])
+def test_flash_attention_ragged_tokens(gen, dt, n):
+    """C on a ragged last query tile and key chunk; bf16 runs the
+    tensor-core kernel, f32 the FMA kernel, one launch each."""
+    q, k, v = (torch.randn(2, n, 512, generator=gen, device="cuda").to(dt)
                for _ in range(3))
-    _close(fa.flash_attention_1h(q, k, v), fa.attention_plain(q, k, v), dt)
+    before = _routes((fa.FLASH_ATTN_1H_TC, fa.FLASH_ATTN_1H))
+    got = fa.flash_attention_1h(q, k, v)
+    tc = dt == torch.bfloat16
+    assert _routes((fa.FLASH_ATTN_1H_TC, fa.FLASH_ATTN_1H)) == [before[0] + tc,
+                                                                before[1] + (not tc)]
+    _close(got, fa.attention_plain(q, k, v), dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hidden", [(64, 128), (64, 768), (192, 128), (192, 768), (256, 128)])
+@pytest.mark.parametrize("tokens,geo", [(96, None), (4096 + 64 * 3 - 5, None),
+                                        (96, (8, 12, 4, 2)), (44 * 100, (44, 100, 4, 2))])
+def test_swin_mlp_routes(gen, dt, c, hidden, tokens, geo):
+    """B at ragged token counts (the last 64-row tile cut short), with and
+    without the unshift, in both routes: bf16 on the tensor-core kernel, f32
+    on the FMA kernel, one launch each."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    b = 2
+    y = rn(b, tokens, c).to(dt)
+    wm, bm = sb.gn_fold(y, 1 + 0.1 * rn(c), 0.1 * rn(c))
+    mlp = [(rn(c, hidden) / c ** 0.5).to(dt), (0.1 * rn(hidden)).to(dt),
+           (rn(hidden, c) / hidden ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+    before = _routes((sb.SWIN_MLP_TC, sb.SWIN_MLP))
+    if geo:
+        got = sb.mlp_unshift_residual_stats(y, wm, bm, *mlp, *geo)
+        want = sb.mlp_unshift_residual_stats_plain(y, wm, bm, *mlp, *geo)
+    else:
+        got = sb.norm_mlp_residual_stats(y, wm, bm, *mlp)
+        want = sb.norm_mlp_residual_stats_plain(y, wm, bm, *mlp)
+    tc = dt == torch.bfloat16
+    assert _routes((sb.SWIN_MLP_TC, sb.SWIN_MLP)) == [before[0] + tc, before[1] + (not tc)]
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, dt)
 
 
 @pytest.mark.parametrize("d", [3, 8])
@@ -192,6 +233,14 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
     q = torch.zeros(1, 64, 256, device="cuda")
     with pytest.raises(ValueError):
         fa.flash_attention_1h(q, q, q)
+    # B's tensor-core route (bf16) takes C % 16 == 0; the f32 route takes C = 24
+    xm = torch.zeros(1, 64, 24, device="cuda")
+    wm, bm = torch.ones(1, 24, device="cuda"), torch.zeros(1, 24, device="cuda")
+    mlp = (torch.zeros(24, 64, device="cuda"), torch.zeros(64, device="cuda"),
+           torch.zeros(64, 24, device="cuda"), torch.zeros(24, device="cuda"))
+    with pytest.raises(ValueError):
+        sb.norm_mlp_residual_stats(xm.bfloat16(), wm, bm, *(t.bfloat16() for t in mlp))
+    assert sb.norm_mlp_residual_stats(xm, wm, bm, *mlp)[0].shape == xm.shape
     with pytest.raises(ValueError):
         shift.shift_tokens(torch.zeros(1, 60, 8, device="cuda"), 6, 10, 8, 4)
     with pytest.raises(TypeError):
