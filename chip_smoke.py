@@ -8,21 +8,25 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      resshift_tpu_torch/csrc with nvcc (into the ignored _build/);
   2. hold each kernel (A swin_window_attn, B swin_mlp, C flash_attn_1h,
      D vq_nearest, E shift_tokens) against its plain PyTorch version at the
-     main paths' shapes, in bf16 and f32, and time both; B and C run bf16 on
-     their tensor-core kernels (swin_mlp_tc, flash_attn_1h_tc) and f32 on
-     their FMA kernels, and each call is checked for its route; both routes
-     are timed, C beside scaled_dot_product_attention, B also at each
-     Swin level's token count (8 to 512 CTAs); C also at the
+     main paths' shapes, in bf16 and f32, and time both; A, B and C run bf16
+     on their tensor-core kernels (swin_window_attn_tc, swin_mlp_tc,
+     flash_attn_1h_tc) and f32 on their FMA kernels, and each call is
+     checked for its route; both routes are timed, C beside
+     scaled_dot_product_attention, A and B also at each Swin level's token
+     count (8 to 512 windows), A also by the profiler's device time (its
+     kernel and the statistics reduce apart); C also at the
      N = 49152 of a whole photo; one wide Swin block (192x256) both ways,
      through E and through the shift-absorbing A and B;
   3. run realsr_v1 at full width (seeded random weights, bf16, 15 steps,
      batch 8 of 64x64 LQ tiles) through ResShiftPipeline.sample and check
      each kernel's launch count in that one call (here and in phases 6, 7,
-     9 and 10 every B and C launch must be the tensor-core route);
+     9 and 10 every A, B and C launch must be the tensor-core route; the
+     profiles of phases 3, 6, 7 and 9 give A's and the statistics reduce's
+     device time by name);
   4. run the same sample through the plain versions (patched in here only)
      and require >= 35 dB PSNR on the final latent;
   5. run one padded, chopped input through sample, in bf16 and in f32 (the
-     FMA routes of B and C, which must launch there and only there);
+     FMA routes of A, B and C, which must launch there and only there);
   6. realsr_v3 on a whole 176x250 photo (batch 1, unchopped, a 192x256
      latent, so the widest Swin level takes E): launch counts derived from
      the model's structure, the output, >= 35 dB latent PSNR against the
@@ -91,10 +95,11 @@ K10_SHAPES = [("unet res@64", 8, 64, 160, 160), ("dec up0@256 256->128", 8, 256,
 P1_SHAPE = (8, 64, 64, 160)
 P1_ROWS = (1, 4)  # P1's rows per CTA: checked in phase 2, swept by profile_conv in phase 12
 # phase 12: each tool with its arguments and the kernels it must launch
-TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"], ["window_attn"]),
+TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"],
+              ["window_attn", "swin_window_attn_tc"]),
              ("profile_winograd", ["--only=res@64"], ["winograd_conv3x3"]),
              ("profile_conv", ["--rows", ",".join(map(str, P1_ROWS))], ["conv3x3"]),
-             ("profile_attn_variants", [], ["swin_window_attn", "attn_variants"])]
+             ("profile_attn_variants", [], ["swin_window_attn_tc", "attn_variants"])]
 PROBE_KERNELS = {"K9": "window_attn", "K10": "winograd_conv3x3", "P1": "conv3x3",
                  "P2": "attn_variants"}
 
@@ -131,10 +136,38 @@ def check(name: str, got, want, rel: float, atol: float) -> float:
     return err
 
 
+# kernels whose device time every profile reports, whether or not in its top 15
+PROFILED = ("swin_window_attn_tc_kernel", "swin_window_attn_kernel", "stats_reduce_kernel")
+
+
+def device_ms(torch, fn, names, reps: int = 10) -> dict:
+    """Device time per call of fn() by kernel-name substring, from a
+    torch.profiler trace of `reps` calls after a warm-up call: the kernels
+    alone, without the host's launch gaps that CUDA events around the calls
+    include."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            for n in names:
+                if n in ev.name:
+                    out[n] += ev.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
 def profile_sample(torch, fn):
     """Device time of one sample call by kernel name, and the device's busy
-    share of the call's wall time, from a torch.profiler trace.  Returns
-    the call's result and its wall time in ms."""
+    share of the call's wall time, from a torch.profiler trace; the kernels
+    of PROFILED always.  Returns the call's result and its wall time in
+    ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,11 +187,14 @@ def profile_sample(torch, fn):
           f"({100 * busy / wall_us:.1f}%, kernels assumed not to overlap)", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"    {us / 1e3:9.2f} ms {100 * us / busy:5.1f}%  {name[:110]}", flush=True)
+    for key in PROFILED:
+        us = sum(v for name, v in by_name.items() if key in name)
+        print(f"    by name: {key} {us / 1e3:.2f} ms ({100 * us / busy:.1f}%)", flush=True)
     return out, wall_us / 1e3
 
 
 def routed(torch, fn, tc, fma, dt):
-    """fn(), which must launch B's or C's tensor-core kernel `tc` once in
+    """fn(), which must launch A's, B's or C's tensor-core kernel `tc` once in
     bf16 and its FMA kernel `fma` once in f32, and nothing else of them."""
     before = (tc.launches, fma.launches)
     out = fn()
@@ -172,7 +208,8 @@ def check_kernels(dev):
     """Phase 2: each kernel against its plain version at the main path's
     shapes, in bf16 and f32; returns (max error, (kernel ms, plain ms[,
     library ms])) per kernel, timed in bf16 at the largest shape, and for
-    B and C also in f32 (their FMA routes, keys "B f32" and "C f32")."""
+    A, B and C also in f32 (their FMA routes, keys "A f32", "B f32" and "C
+    f32"); A's device times by kernel under "A device" and "A f32 device"."""
     import torch
     import torch.nn.functional as F
 
@@ -190,7 +227,7 @@ def check_kernels(dev):
     # statistics add those values in f32 in another order.
     tol = {torch.bfloat16: (2 ** -6, 1e-3), torch.float32: (1e-4, 1e-5)}
     stats_rel = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
-    errs = {"A": 0.0, "B": 0.0, "B f32": 0.0}
+    errs = {"A": 0.0, "A f32": 0.0, "B": 0.0, "B f32": 0.0}
     timed = {}
     for dt in (torch.bfloat16, torch.float32):
         rel, atol = tol[dt]
@@ -214,16 +251,29 @@ def check_kernels(dev):
             else:
                 fk = lambda: sb.norm_attn_residual_stats(*args)
                 fp = lambda: sb.norm_attn_residual_stats_plain(*args)
-            got, want = fk(), fp()
+            got = routed(torch, fk, sb.SWIN_WINDOW_ATTN_TC, sb.SWIN_WINDOW_ATTN, dt)
+            want = fp()
             name = f"A {tag} T={t}{' shift' if shift else ''}"
             e = check(name + " y", got[0], want[0], rel, atol)
             for i, s in ((1, "sum"), (2, "sumsq")):
                 check(f"{name} {s}", got[i], want[i], stats_rel[dt], atol)
-            if dt == torch.bfloat16:
-                errs["A"] = max(errs["A"], e)
-            if (tag, t, shift) == ("bf16", 4096, False):
-                timed["A"] = (cuda_ms(torch, fk), cuda_ms(torch, fp))
-                print(f"  A ms {timed['A'][0]:.4f}, plain ms {timed['A'][1]:.4f}", flush=True)
+            key = "A" if dt == torch.bfloat16 else "A f32"
+            errs[key] = max(errs[key], e)
+            if (t, shift) == (4096, False):
+                timed[key] = (cuda_ms(torch, fk), cuda_ms(torch, fp))
+                kern = "swin_window_attn_tc_kernel" if key == "A" else "swin_window_attn_kernel"
+                dev_ms = device_ms(torch, fk, (kern, "stats_reduce_kernel"))
+                timed[f"{key} device"] = dev_ms
+                print(f"  {key} ms {timed[key][0]:.4f} ({'tensor cores' if key == 'A' else 'FMA'})"
+                      f", plain ms {timed[key][1]:.4f}; device ms by kernel (profiler): "
+                      f"{dev_ms}", flush=True)
+            elif dt == torch.bfloat16 and not shift:  # the smaller levels: fewer windows
+                timed[f"A T={t}"] = (cuda_ms(torch, fk), cuda_ms(torch, fp),
+                                     device_ms(torch, fk, ("swin_window_attn_tc_kernel",))[
+                                         "swin_window_attn_tc_kernel"])
+                print(f"  A T={t} ({bsz * t // n} windows) ms {timed[f'A T={t}'][0]:.4f}, "
+                      f"plain ms {timed[f'A T={t}'][1]:.4f}, kernel device ms "
+                      f"{timed[f'A T={t}'][2]:.4f}", flush=True)
             # B on the attention output, the MLP's real input
             y = want[0]
             wm, bmm = sb.fold_stats(want[1:], 1 + 0.1 * rn(c), 0.1 * rn(c), t)
@@ -646,13 +696,14 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
                 n["E"] += 2 * shifted
     want = {k: v * steps for k, v in n.items()}
     want.update(C=2, D=1, F=steps + 1 if tail_pinned else 0)
-    want.update({"B f32": 0, "C f32": 0})  # bf16: no launch of the FMA routes
+    want.update({"A f32": 0, "B f32": 0, "C f32": 0})  # bf16: no launch of the FMA routes
     return want
 
 
 def read_launches(kernels: dict, sb) -> dict:
     got = {k: kern.launches for k, kern in kernels.items()}
-    got["fused shift"] = sb.SWIN_WINDOW_ATTN.variants.get("shift", 0)
+    got["fused shift"] = sum(k.variants.get("shift", 0)
+                             for k in (sb.SWIN_WINDOW_ATTN_TC, sb.SWIN_WINDOW_ATTN))
     unshift = sum(k.variants.get("unshift", 0) for k in (sb.SWIN_MLP_TC, sb.SWIN_MLP))
     if unshift != got["fused shift"]:
         raise AssertionError("shifted A and unshifting B launches differ")
@@ -663,7 +714,7 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     """The `kernels` report: each kernel's launches in its main path (the
     whole photo of phase 6 for A-E, the face of phase 9 for F, the tools of
     phase 12 for K9, K10, P1 and P2, phase 5's f32 call for the FMA routes
-    of B and C; every phase under `launches_by_phase`), its error and times
+    of A, B and C; every phase under `launches_by_phase`), its error and times
     from phase 2 (bf16, but f32 for the FMA routes), and its bound at the
     timed shapes (bytes: each input read once, each output written once); F
     at the f8 decoder tail, K10 at unet res@64, each with every timed shape
@@ -679,11 +730,11 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     m_rows = bsz * 4096
     d_bytes, d_ops = m_rows * 3 * 4 + 8192 * 3 * 4 + m_rows * 4, m_rows * 8192 * (2 * 3 + 2)
     e_bytes = 2 * WIDE_LATENTS[0][0] * WIDE_LATENTS[0][1] * c * s2  # a permutation: no operations
+    a_repl = "resshift_tpu/ops/swin_block_pallas.py:389 (K1) and :496 (K3)"
     b_repl = "resshift_tpu/ops/swin_block_pallas.py:629 (K2) and :701 (K4)"
     c_repl = "resshift_tpu/ops/flash_attention_pallas.py:100 (K5)"
     meta = {
-        "A": ("swin_window_attn", "resshift_tpu_torch/csrc/swin_window_attn.cu",
-              "resshift_tpu/ops/swin_block_pallas.py:389 (K1) and :496 (K3)",
+        "A": ("swin_window_attn_tc", "resshift_tpu_torch/csrc/swin_window_attn_tc.cu", a_repl,
               bound(a_bytes, a_ops, "bf16")),
         "B": ("swin_mlp_tc", "resshift_tpu_torch/csrc/swin_mlp_tc.cu", b_repl,
               bound(b_bytes, b_ops, "bf16")),
@@ -736,9 +787,11 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     rows[-1]["by_mode"] = {sm: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
                            for sm, t in p2.items()}
 
-    # the f32 routes of B and C (FMA kernels), launched by phase 5's f32 call;
-    # their bound at f32 widths and the f32 FMA rate
-    f32 = {"B f32": ("swin_mlp", "resshift_tpu_torch/csrc/swin_mlp.cu", b_repl,
+    # the f32 routes of A, B and C (FMA kernels), launched by phase 5's f32
+    # call; their bound at f32 widths and the f32 FMA rate
+    f32 = {"A f32": ("swin_window_attn", "resshift_tpu_torch/csrc/swin_window_attn.cu", a_repl,
+                     bound(2 * a_bytes - (4 * bsz * c * 4) - nh * n * n * 4, a_ops, "f32")),
+           "B f32": ("swin_mlp", "resshift_tpu_torch/csrc/swin_mlp.cu", b_repl,
                      bound(2 * b_bytes - (4 * bsz * c * 4), b_ops, "f32")),
            "C f32": ("flash_attn_1h", "resshift_tpu_torch/csrc/flash_attn_1h.cu", c_repl,
                      bound(2 * c_bytes, c_ops, "f32"))}
@@ -749,10 +802,17 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
                      "plain_ms": tk[1], "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": tk[2] if len(tk) > 2 else None, "dtype": "f32",
                      "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}})
-    for row in rows[1:3]:  # B and C: their tensor-core routes
+    for row in rows[0:3]:  # A, B and C: their tensor-core routes
         row["dtype"] = "bf16"
+    rows[0]["by_tokens"] = {k[2:]: dict(zip(("ms", "plain_ms", "kernel_device_ms"), t))
+                            for k, t in timed.items() if k.startswith("A T=")}
+    rows[0]["by_tokens"]["T=4096"] = {"ms": timed["A"][0], "plain_ms": timed["A"][1],
+                                      "kernel_device_ms": timed["A device"][
+                                          "swin_window_attn_tc_kernel"]}
     rows[1]["by_tokens"] = {k[2:]: dict(zip(("ms", "plain_ms"), t)) for k, t in timed.items()
                             if k.startswith("B T=")}
+    for row, key in ((rows[0], "A device"), (rows[-3], "A f32 device")):
+        row["device_ms_by_kernel"] = timed[key]  # the kernel and the statistics reduce
     return rows
 
 
@@ -821,8 +881,9 @@ def main() -> int:
     lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(2)).to(dev) * 2 - 1
     latents = {}
 
-    # B and C by route: the tensor-core kernels (bf16) and the FMA ones (f32)
-    all_kernels = {"A": sb.SWIN_WINDOW_ATTN, "B": sb.SWIN_MLP_TC, "B f32": sb.SWIN_MLP,
+    # A, B and C by route: the tensor-core kernels (bf16) and the FMA ones (f32)
+    all_kernels = {"A": sb.SWIN_WINDOW_ATTN_TC, "A f32": sb.SWIN_WINDOW_ATTN,
+                   "B": sb.SWIN_MLP_TC, "B f32": sb.SWIN_MLP,
                    "C": fa.FLASH_ATTN_1H_TC, "C f32": fa.FLASH_ATTN_1H, "D": vq.VQ_NEAREST,
                    "E": shift_ops.SHIFT_TOKENS, "F": tail.GN_SILU_CONV3X3}
 
@@ -894,7 +955,7 @@ def main() -> int:
     launches = {"3": read_launches(all_kernels, sb)}
     print(f"  launches in one sample call: {launches['3']}", flush=True)
     want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "E": 0, "F": 0, "fused shift": 90,
-                     "B f32": 0, "C f32": 0}
+                     "A f32": 0, "B f32": 0, "C f32": 0}
     if launches["3"] != want_launches:
         raise AssertionError(f"launch counts {launches['3']}, want {want_launches}")
     if out.shape != (BSZ, 256, 256, 3) or not torch.isfinite(out).all():
@@ -920,7 +981,7 @@ def main() -> int:
         raise AssertionError(f"chopped output {tuple(out2.shape)} not finite or misshapen")
     print(f"  chopped output {tuple(out2.shape)}, finite, in [{out2.min().item():.3f}, "
           f"{out2.max().item():.3f}]", flush=True)
-    # the same input in f32: B and C take their FMA routes, A, D their f32 code
+    # the same input in f32: A, B and C take their FMA routes, D its f32 code
     pipe32 = ResShiftPipeline("realsr_v1", dtype=torch.float32)
     pipe32.load_state_dicts(**sds)
     reset()
@@ -931,9 +992,9 @@ def main() -> int:
     ms32 = (time.perf_counter() - t1) * 1e3
     launches["5 f32"] = read_launches(all_kernels, sb)
     print(f"  f32: launches {launches['5 f32']}, {ms32:.1f} ms (first call)", flush=True)
-    if (launches["5 f32"]["B"] or launches["5 f32"]["C"] or not launches["5 f32"]["B f32"]
-            or not launches["5 f32"]["C f32"]):
-        raise AssertionError("an f32 call must launch the FMA routes of B and C, and only them")
+    if any(launches["5 f32"][k] or not launches["5 f32"][f"{k} f32"] for k in "ABC"):
+        raise AssertionError("an f32 call must launch the FMA routes of A, B and C, and only "
+                             "them")
     if out32.shape != out2.shape or not torch.isfinite(out32).all():
         raise AssertionError(f"f32 chopped output {tuple(out32.shape)} not finite or misshapen")
     psnr = 10 * math.log10(4.0 / max(((out32 - out2) ** 2).mean().item(), 1e-30))

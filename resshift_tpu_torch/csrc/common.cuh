@@ -86,21 +86,51 @@ __device__ __forceinline__ int rolled_token(int j, int H, int W, int ws, int del
   return window_index(((r + delta) % H + H) % H, ((c + delta) % W + W) % W, W, ws);
 }
 
-// Second pass of the GroupNorm statistics: partials (B, P, C) -> (B, C),
-// summed in a fixed order so that the result is the same in every run.
-__global__ void stats_reduce_kernel(const float* __restrict__ part_s,
-                                    const float* __restrict__ part_q, int P, int C,
-                                    float* __restrict__ s, float* __restrict__ q) {
-  const int b = blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float as = 0.f, aq = 0.f;
-    for (int p = 0; p < P; ++p) {
-      as += part_s[((size_t)b * P + p) * C + c];
-      aq += part_q[((size_t)b * P + p) * C + c];
+// Second pass of the GroupNorm statistics: partials (B, P, C) -> (B, C).
+// A CTA takes one image and SR_CH channels; each of its SR_ROWS thread rows
+// sums a contiguous range of the partials in order, then thread row 0 adds
+// the SR_ROWS row sums in order, so the result is the same in every run.
+// The B * C / SR_CH CTAs spread an image's P partials (4096 at a 512x512
+// latent) over the card.
+constexpr int SR_CH = 8, SR_ROWS = 32;
+
+__global__ void __launch_bounds__(SR_CH * SR_ROWS)
+    stats_reduce_kernel(const float* __restrict__ part_s, const float* __restrict__ part_q,
+                        int P, int C, float* __restrict__ s, float* __restrict__ q) {
+  __shared__ float rs[SR_ROWS][SR_CH], rq[SR_ROWS][SR_CH];
+  const int b = blockIdx.x, cx = threadIdx.x % SR_CH, ry = threadIdx.x / SR_CH;
+  const int c = blockIdx.y * SR_CH + cx;
+  const int per = (P + SR_ROWS - 1) / SR_ROWS, p0 = ry * per, p1 = min(P, p0 + per);
+  float as = 0.f, aq = 0.f;
+  if (c < C) {
+    const size_t base = (size_t)b * P * C + c;
+#pragma unroll 4
+    for (int p = p0; p < p1; ++p) {
+      as += part_s[base + (size_t)p * C];
+      aq += part_q[base + (size_t)p * C];
     }
-    s[(size_t)b * C + c] = as;
-    q[(size_t)b * C + c] = aq;
   }
+  rs[ry][cx] = as;
+  rq[ry][cx] = aq;
+  __syncthreads();
+  if (ry == 0 && c < C) {
+    float ts = 0.f, tq = 0.f;
+    for (int r = 0; r < SR_ROWS; ++r) {
+      ts += rs[r][cx];
+      tq += rq[r][cx];
+    }
+    s[(size_t)b * C + c] = ts;
+    q[(size_t)b * C + c] = tq;
+  }
+}
+
+// Launch the second pass on `st`; returns cudaGetLastError().
+static inline cudaError_t launch_stats_reduce(const float* part_s, const float* part_q, int B,
+                                              int P, int C, float* s, float* q,
+                                              cudaStream_t st) {
+  stats_reduce_kernel<<<dim3(B, (C + SR_CH - 1) / SR_CH), SR_CH * SR_ROWS, 0, st>>>(
+      part_s, part_q, P, C, s, q);
+  return cudaGetLastError();
 }
 
 // Per-channel partial sums of an (M, ld) f32 tile in shared memory.

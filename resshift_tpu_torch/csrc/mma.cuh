@@ -1,5 +1,6 @@
-// Tensor-core and async-copy primitives of the bf16 kernels B
-// (swin_mlp_tc.cu) and C (flash_attn_1h_tc.cu), as inline PTX for sm_90a.
+// Tensor-core and async-copy primitives of the bf16 kernels A
+// (swin_window_attn_tc.cu), B (swin_mlp_tc.cu) and C (flash_attn_1h_tc.cu),
+// as inline PTX for sm_90a.
 //
 //   mma_bf16     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: D += A B
 //                for a 16x16 bf16 A (4 registers), a 16x8 bf16 B (2

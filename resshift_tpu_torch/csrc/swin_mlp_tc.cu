@@ -264,8 +264,7 @@ cudaError_t launch(const MlpArgs& a, int B, float* s, float* q, cudaStream_t st)
   swin_mlp_tc_kernel<CT><<<B * nblk, THREADS, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  stats_reduce_kernel<<<B, 256, 0, st>>>(a.part_s, a.part_q, nblk, a.C, s, q);
-  return cudaGetLastError();
+  return launch_stats_reduce(a.part_s, a.part_q, B, nblk, a.C, s, q, st);
 }
 
 }  // namespace

@@ -109,8 +109,7 @@ cudaError_t launch(const AttnArgs& a, int B, float* s, float* q, cudaStream_t st
   swin_window_attn_kernel<T><<<B * (a.T / a.N), THREADS, smem, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  stats_reduce_kernel<<<B, 256, 0, st>>>(a.part_s, a.part_q, a.T / a.N, a.C, s, q);
-  return cudaGetLastError();
+  return launch_stats_reduce(a.part_s, a.part_q, B, a.T / a.N, a.C, s, q, st);
 }
 
 }  // namespace

@@ -3,14 +3,16 @@ per-image affine, then window attention or the channel MLP, plus the
 residual and the f32 (sum, sumsq) of the output per (image, channel) that
 the next GroupNorm folds from.
 
-Two kernels carry the block on the GPU (csrc/):
-  * A `swin_window_attn` replaces the TPU kernels
+Two kernels carry the block on the GPU (csrc/), each in two routes chosen
+by dtype: bf16 (the main path's) on the tensor cores, f32 on the FMA units.
+  * A replaces the TPU kernels
     `swin_block_pallas._norm_attn_residual_fwd_pallas` (K1) and
-    `_shift_attn_fwd_pallas` (K3, the shifted-window read);
+    `_shift_attn_fwd_pallas` (K3, the shifted-window read):
+    `swin_window_attn_tc` in bf16, `swin_window_attn` in f32 (the shapes
+    each takes: `attn_route`);
   * B replaces `_norm_mlp_residual_fwd_pallas` (K2) and
-    `_mlp_unshift_fwd_pallas` (K4, the unshifted write), in two routes
-    chosen by dtype: bf16 (the main path's) on the tensor cores
-    (`swin_mlp_tc`), f32 on the FMA units (`swin_mlp`).
+    `_mlp_unshift_fwd_pallas` (K4, the unshifted write): `swin_mlp_tc` in
+    bf16, `swin_mlp` in f32.
 Each wrapper runs the plain PyTorch version for a CPU tensor, launches the
 kernel for a CUDA tensor, and raises for anything else.  The plain
 versions repeat the JAX package's `*_xla` compositions op for op,
@@ -30,14 +32,16 @@ from .._ext import I, P
 from .window_attention import window_attention_plain
 
 __all__ = ["token_stats", "fold_stats", "gn_fold", "shift_permutation", "shift_fuse_fits",
+           "attn_route",
            "norm_attn_residual_plain", "norm_mlp_residual_plain",
            "norm_attn_residual_stats_plain", "shift_attn_residual_stats_plain",
            "norm_mlp_residual_stats_plain", "mlp_unshift_residual_stats_plain",
            "norm_attn_residual_stats", "shift_attn_residual_stats",
            "norm_mlp_residual_stats", "mlp_unshift_residual_stats",
-           "SWIN_WINDOW_ATTN", "SWIN_MLP", "SWIN_MLP_TC"]
+           "SWIN_WINDOW_ATTN", "SWIN_WINDOW_ATTN_TC", "SWIN_MLP", "SWIN_MLP_TC"]
 
-SWIN_WINDOW_ATTN = _ext.Kernel("swin_window_attn", [P] * 13 + [I] * 11)
+SWIN_WINDOW_ATTN = _ext.Kernel("swin_window_attn", [P] * 13 + [I] * 11)  # f32, FMA
+SWIN_WINDOW_ATTN_TC = _ext.Kernel("swin_window_attn_tc", [P] * 13 + [I] * 10)  # bf16, tensor cores
 SWIN_MLP = _ext.Kernel("swin_mlp", [P] * 12 + [I] * 9)  # f32, FMA
 SWIN_MLP_TC = _ext.Kernel("swin_mlp_tc", [P] * 12 + [I] * 8)  # bf16, tensor cores
 
@@ -183,12 +187,31 @@ def _geometry(t: int, n_win: int, geom):
     return ws, h, wd, shift
 
 
+def attn_route(dtype: torch.dtype, n_win: int, c: int, num_heads: int) -> str:
+    """Which route of kernel A takes windows of `n_win` tokens x `c`
+    channels in `num_heads` heads: "tc" (bf16, `swin_window_attn_tc`: C %
+    16 == 0 and head width 16 or 32) or "fma" (f32, `swin_window_attn`: any
+    head width up to 64).  Both take n_win <= 64 and C <= 256.  Raises
+    ValueError for shapes the dtype's route does not take, TypeError for
+    other dtypes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"swin_window_attn takes float32 or bfloat16, not {dtype}")
+    hd = c // num_heads if num_heads > 0 and c % num_heads == 0 else 0
+    tc = dtype == torch.bfloat16
+    if not (0 < n_win <= 64 and 0 < c <= 256 and 0 < hd <= 64) or (tc and (c % 16 or
+                                                                          hd not in (16, 32))):
+        raise ValueError(f"swin_window_attn: no {dtype} route for N={n_win}, C={c}, "
+                         f"heads={num_heads}")
+    return "tc" if tc else "fma"
+
+
 def _attn_kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win, geom):
     bsz, t, c = _check_tokens(x)
+    route = attn_route(x.dtype, n_win, c, num_heads)
     nwin_img = t // n_win
     nwb = bias_mask.shape[0]
-    if (t % n_win or n_win > 64 or c % num_heads or c > 256 or (c // num_heads) > 64
-            or bias_mask.shape != (nwb, num_heads, n_win, n_win) or nwb not in (1, nwin_img)):
+    if (t % n_win or bias_mask.shape != (nwb, num_heads, n_win, n_win)
+            or nwb not in (1, nwin_img)):
         raise ValueError("swin_window_attn: unsupported shapes "
                          f"x={tuple(x.shape)} heads={num_heads} N={n_win} bias={tuple(bias_mask.shape)}")
     ws, h, wd, shift = _geometry(t, n_win, geom)
@@ -196,14 +219,21 @@ def _attn_kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win,
     args = [_cast(a, torch.float32) for a in (w, b)]
     args += [_cast(a, dt) for a in (wqkv, bqkv, wproj, bproj)]
     bm = _cast(bias_mask, torch.float32)
+    if route == "tc":  # cp.async of the rows and weights, pairs of the biases
+        x, bm = _ext.aligned16(x), _ext.aligned16(bm)
+        args[2:] = [_ext.aligned16(a) for a in args[2:]]
     y = torch.empty_like(x)
     part = torch.empty(2, bsz, nwin_img, c, dtype=torch.float32, device=x.device)
     stats = torch.empty(2, bsz, c, dtype=torch.float32, device=x.device)
-    SWIN_WINDOW_ATTN(x.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(),
-                     y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-                     stats[0].data_ptr(), stats[1].data_ptr(),
-                     _ext.dtype_code(dt), bsz, t, c, num_heads, n_win, nwb, ws, h, wd, shift,
-                     variant="shift" if geom else "plain")
+    ptrs = [x.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(), y.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr()]
+    variant = "shift" if geom else "plain"
+    if route == "tc":
+        SWIN_WINDOW_ATTN_TC(*ptrs, bsz, t, c, num_heads, n_win, nwb, ws, h, wd, shift,
+                            variant=variant)
+    else:
+        SWIN_WINDOW_ATTN(*ptrs, _ext.dtype_code(dt), bsz, t, c, num_heads, n_win, nwb, ws, h, wd,
+                         shift, variant=variant)
     return y, stats[0], stats[1]
 
 

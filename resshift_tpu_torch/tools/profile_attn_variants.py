@@ -42,7 +42,8 @@ def main(argv=None) -> dict:
     bqkv, bproj = torch.zeros(3 * C, dtype=DT, device=dev), torch.zeros(C, dtype=DT, device=dev)
     bm = torch.zeros(1, NH, N, N, device=dev)
     args_ = (x, w, b, wqkv, bqkv, wproj, bproj, bm, NH, N)
-    for k in (sb.SWIN_WINDOW_ATTN, av.ATTN_VARIANTS):
+    kernels = (sb.SWIN_WINDOW_ATTN_TC, sb.SWIN_WINDOW_ATTN, av.ATTN_VARIANTS)
+    for k in kernels:
         k.reset()
 
     results = {}
@@ -60,7 +61,7 @@ def main(argv=None) -> dict:
         diff = (av.attn_variant(*args_, "f32").float() - y_a.float()).abs().max().item()
         results["f32_vs_production_max_abs_diff"] = diff
         print(f"variant[f32] vs production: max|diff| {diff:.4e}", flush=True)
-    return emit(dev, results, (sb.SWIN_WINDOW_ATTN, av.ATTN_VARIANTS))
+    return emit(dev, results, kernels)
 
 
 if __name__ == "__main__":

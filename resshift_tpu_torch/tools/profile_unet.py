@@ -123,7 +123,8 @@ def main(argv=None) -> dict:
     unknown = [n for n in names if n not in PHASES]
     if unknown:
         raise SystemExit(f"unknown phases {unknown}; known: {list(PHASES)}")
-    kernels = (wa.WINDOW_ATTN, sb.SWIN_WINDOW_ATTN, sb.SWIN_MLP_TC, sb.SWIN_MLP)
+    kernels = (wa.WINDOW_ATTN, sb.SWIN_WINDOW_ATTN_TC, sb.SWIN_WINDOW_ATTN, sb.SWIN_MLP_TC,
+               sb.SWIN_MLP)
     for k in kernels:
         k.reset()
     results = {}

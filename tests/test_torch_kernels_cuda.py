@@ -2,7 +2,9 @@
 card, at shapes off the main path (small windows, ragged tiles, other
 widths, unaligned views), in float32 and bfloat16; for kernels B and C,
 which launch a tensor-core kernel in bf16 and an FMA kernel in f32, also
-which route ran.
+which route ran; the same for kernel A, whose two calls must also give the
+same bits, and whose statistics reduce holds against an f64 sum over 4096
+windows.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Where there is a card, run
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -129,6 +131,79 @@ def test_swin_mlp_routes(gen, dt, c, hidden, tokens, geo):
         _close(g_, w_, dt)
 
 
+def _attn_case(gen, dt, b, n, c, nh, hw, shifted):
+    """Kernel A's inputs at `b` images of an `hw` map of windows of n tokens:
+    with a shift, the per-window bias plus the shift mask; else one bias."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    ws = int(n ** 0.5)
+    h, w = hw
+    x = rn(b, h * w, c).to(dt)
+    wa_, ba = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c))
+    wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+           (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+    if not shifted:
+        return (x, wa_, ba, *wts, 0.2 * rn(1, nh, n, n), nh, n), None
+    geo = (h, w, ws, ws // 2)
+    bm = 0.2 * rn((h // ws) * (w // ws), nh, n, n)
+    bm = bm + torch.as_tensor(shifted_window_mask(h, w, ws, ws // 2), device="cuda")[:, None]
+    return (x, wa_, ba, *wts, bm, nh, n), geo
+
+
+def _attn_call(args, geo, plain=False):
+    if geo is None:
+        fn = sb.norm_attn_residual_stats_plain if plain else sb.norm_attn_residual_stats
+        return fn(*args)
+    fn = sb.shift_attn_residual_stats_plain if plain else sb.shift_attn_residual_stats
+    return fn(*args, *geo)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,nh", [(16, 64, 2), (64, 64, 2), (16, 192, 6), (64, 192, 6),
+                                    (64, 256, 8), (16, 256, 16), (64, 96, 3)])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_swin_window_attn_routes(gen, dt, n, c, nh, shifted):
+    """A with one shared bias unshifted and with per-window biases plus the
+    shift mask through the roll, at 3 images of 3 x 5 windows (45 windows,
+    an odd count), head widths 32 and 16 (C = 96: a 64-column panel cut
+    short); bf16 launches the tensor-core kernel once, f32 the FMA kernel
+    once."""
+    ws = int(n ** 0.5)
+    args, geo = _attn_case(gen, dt, 3, n, c, nh, (3 * ws, 5 * ws), shifted)
+    before = _routes((sb.SWIN_WINDOW_ATTN_TC, sb.SWIN_WINDOW_ATTN))
+    got = _attn_call(args, geo)
+    tc = dt == torch.bfloat16
+    assert _routes((sb.SWIN_WINDOW_ATTN_TC, sb.SWIN_WINDOW_ATTN)) == [before[0] + tc,
+                                                                      before[1] + (not tc)]
+    for g_, w_ in zip(got, _attn_call(args, geo, plain=True)):
+        _close(g_, w_, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_swin_window_attn_same_bits(gen, dt):
+    """Two identical calls of A (the main path's widths, shifted) give the
+    same y and statistics, bit for bit."""
+    args, geo = _attn_case(gen, dt, 2, 64, 192, 6, (32, 40), True)
+    first, second = _attn_call(args, geo), _attn_call(args, geo)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_stats_reduce_over_4096_windows(gen, dt):
+    """The second pass of A's statistics over 4096 window partials an image
+    (a 256 x 256 map of 4 x 4 windows): within the statistics band of an f64
+    sum of A's own output, and the same bits in two runs."""
+    args, _ = _attn_case(gen, dt, 2, 16, 64, 2, (256, 256), False)
+    y, s, q = _attn_call(args, None)
+    y64 = y.double()
+    band = {torch.bfloat16: 1e-3, torch.float32: 1e-5}[dt]  # relative, and absolute
+    for got, want in ((s, y64.sum(1)), (q, (y64 * y64).sum(1))):
+        err = (got.double() - want).abs().max().item()
+        assert err <= band + band * want.abs().max().item(), err
+    y2, s2, q2 = _attn_call(args, None)
+    assert torch.equal(y, y2) and torch.equal(s, s2) and torch.equal(q, q2)
+
+
 @pytest.mark.parametrize("d", [3, 8])
 def test_vq_nearest_ragged_rows(gen, d):
     z = torch.randn(1000, d, generator=gen, device="cuda")
@@ -241,6 +316,18 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
     with pytest.raises(ValueError):
         sb.norm_mlp_residual_stats(xm.bfloat16(), wm, bm, *(t.bfloat16() for t in mlp))
     assert sb.norm_mlp_residual_stats(xm, wm, bm, *mlp)[0].shape == xm.shape
+    # A's tensor-core route (bf16) takes C % 16 == 0 and heads 16 or 32 wide;
+    # the f32 route takes C = 40 and heads 64 wide
+    for c, nh in ((40, 2), (128, 2)):
+        xa = torch.zeros(1, 64, c, device="cuda")
+        aw, ab = torch.ones(1, c, device="cuda"), torch.zeros(1, c, device="cuda")
+        wts = (torch.zeros(c, 3 * c, device="cuda"), torch.zeros(3 * c, device="cuda"),
+               torch.zeros(c, c, device="cuda"), torch.zeros(c, device="cuda"))
+        bias = torch.zeros(1, nh, 16, 16, device="cuda")
+        with pytest.raises(ValueError):
+            sb.norm_attn_residual_stats(xa.bfloat16(), aw, ab, *(t.bfloat16() for t in wts),
+                                        bias, nh, 16)
+        assert sb.norm_attn_residual_stats(xa, aw, ab, *wts, bias, nh, 16)[0].shape == xa.shape
     with pytest.raises(ValueError):
         shift.shift_tokens(torch.zeros(1, 60, 8, device="cuda"), 6, 10, 8, 4)
     with pytest.raises(TypeError):
