@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (the exit code is then non-zero):
   1. print the card and its power limit; build every CUDA kernel from
-     resshift_tpu_torch/csrc with nvcc (into the ignored _build/);
+     resshift_tpu_torch/csrc with nvcc (into the ignored _build/), and
+     print each kernel's registers and spills;
   2. hold each kernel (A swin_window_attn, B swin_mlp, C flash_attn_1h,
      D vq_nearest, E shift_tokens) against its plain PyTorch version at the
      main paths' shapes, in bf16 and f32, and time both; A, B and C run bf16
@@ -54,13 +55,19 @@ window_attn at (4096, 64, 192) with one bias and with 64 (shift mask), in
 bf16 and f32, timed beside F.multi_head_attention_forward, and the order
 of its gradients; K10 winograd_conv3x3 at unet res@64 and dec up0@256
 with the batch cut to 8, against the plain formulation and F.conv2d; P1
-conv3x3 at (8, 64, 64, 160) with 1 and 4 rows per CTA; P2 attn_variants,
-all five softmaxes, at (8, 4096, 192);
+conv3x3 at (8, 64, 64, 160) with whole rows and 1 and 4 rows per CTA; K10
+and P1 in both routes (bf16: the tensor-core kernels winograd_conv3x3_tc
+and conv3x3_tc; f32: the FMA kernels), each call checked for its route,
+timed by events and by the profiler's device time, beside F.conv2d in the
+same dtype (with the bias for K10, without for P1) and K10's U transform;
+P2 attn_variants, all five softmaxes, at (8, 4096, 192);
  12. the four tools `python -m resshift_tpu_torch.tools.<tool>` in
-     subprocesses (profile_unet, profile_winograd, profile_conv,
-     profile_attn_variants), each at its full width with few iterations:
-     each exits 0 and launches its kernels (their counts are the tools'
-     own, read from the JSON line each prints);
+     subprocesses (profile_unet, profile_winograd on all nine conv families
+     of its census, profile_conv, profile_attn_variants; profile_winograd
+     and profile_conv once more with --dtype f32), each at its full width
+     with few iterations: each exits 0, launches its kernels and, for K10
+     and P1, not the other dtype's route (their counts are the tools' own,
+     read from the JSON line each prints);
 then print the `kernels` JSON line and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
@@ -92,16 +99,26 @@ TAIL_SHAPES = [("UNet head", 8, 160, 64, 64, 3, "f32"), ("faceir head", 1, 160, 
 # profile_conv's shape with the batch cut to 8, P2 at (8, 4096, 192)
 K9_WINDOWS = 4096
 K10_SHAPES = [("unet res@64", 8, 64, 160, 160), ("dec up0@256 256->128", 8, 256, 256, 128)]
+K10_CENSUS_BATCH = 2  # K10's bf16 route at every conv family of profile_winograd's SHAPES
 P1_SHAPE = (8, 64, 64, 160)
 P1_ROWS = (1, 4)  # P1's rows per CTA: checked in phase 2, swept by profile_conv in phase 12
-# phase 12: each tool with its arguments and the kernels it must launch
+# phase 12: each tool with its arguments, the kernels it must launch and those
+# it must not (K10 and P1 take their tensor-core routes in bf16, their FMA
+# routes in f32); profile_winograd covers all nine conv families in bf16
 TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"],
-              ["window_attn", "swin_window_attn_tc"]),
-             ("profile_winograd", ["--only=res@64"], ["winograd_conv3x3"]),
-             ("profile_conv", ["--rows", ",".join(map(str, P1_ROWS))], ["conv3x3"]),
-             ("profile_attn_variants", [], ["swin_window_attn_tc", "attn_variants"])]
-PROBE_KERNELS = {"K9": "window_attn", "K10": "winograd_conv3x3", "P1": "conv3x3",
-                 "P2": "attn_variants"}
+              ["window_attn", "swin_window_attn_tc"], []),
+             ("profile_winograd", [], ["winograd_conv3x3_tc"], ["winograd_conv3x3"]),
+             ("profile_winograd", ["--only=res@64", "--dtype", "f32"], ["winograd_conv3x3"],
+              ["winograd_conv3x3_tc"]),
+             ("profile_conv", ["--rows", "1,2,4"], ["conv3x3_tc"], ["conv3x3"]),
+             ("profile_conv", ["--rows", ",".join(map(str, P1_ROWS)), "--dtype", "f32"],
+              ["conv3x3"], ["conv3x3_tc"]),
+             ("profile_attn_variants", [], ["swin_window_attn_tc", "attn_variants"], [])]
+# the conv tools' error against F.conv2d in f32, relative to the largest
+# output: phase 2's bands
+TOOL_BAND = {"bf16": 2 ** -6, "f32": 1e-4}
+PROBE_KERNELS = {"K9": "window_attn", "K10": "winograd_conv3x3_tc", "K10 f32": "winograd_conv3x3",
+                 "P1": "conv3x3_tc", "P1 f32": "conv3x3", "P2": "attn_variants"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 PEAK_BYTES = 3.35e12
@@ -136,31 +153,43 @@ def check(name: str, got, want, rel: float, atol: float) -> float:
     return err
 
 
-# kernels whose device time every profile reports, whether or not in its top 15
-PROFILED = ("swin_window_attn_tc_kernel", "swin_window_attn_kernel", "stats_reduce_kernel")
+# kernels whose device time every profile reports, whether or not in its top 15:
+# A's routes and the reduce, and the work around the UNet's cuDNN convs that
+# a fused GN+SiLU+conv kernel would take (the convs themselves, cuDNN's
+# layout transposes, the GroupNorm moments)
+PROFILED = ("swin_window_attn_tc_kernel", "swin_window_attn_kernel", "stats_reduce_kernel",
+            "fprop_implicit_gemm", "nchwToNhwc", "nhwcToNchw", "RowwiseMoments")
 
 
-def device_ms(torch, fn, names, reps: int = 10) -> dict:
+def device_ms(torch, fn, names, reps: int = 10, tries: int = 3) -> dict:
     """Device time per call of fn() by kernel-name substring, from a
     torch.profiler trace of `reps` calls after a warm-up call: the kernels
     alone, without the host's launch gaps that CUDA events around the calls
-    include."""
+    include.  A trace that holds no kernel of a name is taken again, up to
+    `tries` traces; a name still missing is None (not measured), never 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            for n in names:
-                if n in ev.name:
-                    out[n] += ev.time_range.elapsed_us() / 1e3 / reps
+    out = dict.fromkeys(names)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for n in [n for n, v in out.items() if v is None]:
+            us = [ev.time_range.elapsed_us() for ev in prof.events()
+                  if ev.device_type == DeviceType.CUDA and n in ev.name]
+            if us:
+                out[n] = sum(us) / 1e3 / reps
+        if all(v is not None for v in out.values()):
+            break
     return out
+
+
+def ms_str(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
 
 
 def profile_sample(torch, fn):
@@ -273,7 +302,7 @@ def check_kernels(dev):
                                          "swin_window_attn_tc_kernel"])
                 print(f"  A T={t} ({bsz * t // n} windows) ms {timed[f'A T={t}'][0]:.4f}, "
                       f"plain ms {timed[f'A T={t}'][1]:.4f}, kernel device ms "
-                      f"{timed[f'A T={t}'][2]:.4f}", flush=True)
+                      f"{ms_str(timed[f'A T={t}'][2])}", flush=True)
             # B on the attention output, the MLP's real input
             y = want[0]
             wm, bmm = sb.fold_stats(want[1:], 1 + 0.1 * rn(c), 0.1 * rn(c), t)
@@ -539,60 +568,93 @@ def check_window_attention(dev):
 
 
 def check_conv_probes(dev):
-    """Phase 2, kernels K10 (Winograd) and P1 (direct conv): K10 at
-    K10_SHAPES against the plain Winograd formulation (phase 2's bands) and
-    against F.conv2d in f32 (the direct conv: 1e-4 relative in f32, the
-    bf16 band in bf16); P1 at P1_SHAPE with each of P1_ROWS rows per CTA
-    against its plain version, in bf16 and f32.  Times in bf16 the kernel, the plain version and F.conv2d
-    (cuDNN, channels_last).  Returns ({key: max bf16 error}, {key: (ms,
-    plain ms, library ms, bound ms, bound by)}), K10 keyed by shape."""
+    """Phase 2, kernels K10 (Winograd) and P1 (direct conv), each in both
+    routes: bf16 on the tensor-core kernels (winograd_conv3x3_tc,
+    conv3x3_tc), f32 on the FMA kernels (winograd_conv3x3, conv3x3), each
+    call checked for its route.  K10 at K10_SHAPES against the plain
+    Winograd formulation (phase 2's bands) and against F.conv2d in f32 (the
+    direct conv: 1e-4 relative in f32, the bf16 band in bf16); P1 at
+    P1_SHAPE with whole rows and each of P1_ROWS rows per CTA, the same way.
+    K10's bf16 route also at each of profile_winograd's nine census shapes
+    (H, C, Co), the batch cut to K10_CENSUS_BATCH, the same way, untimed.
+    Times each route by CUDA events around the wrapper and by the profiler's
+    device time of its kernel, the plain version, F.conv2d (cuDNN,
+    channels_last, in the same dtype: with the bias for K10, without for
+    P1) and, for K10, the transform U = G g G^T that the wrapper computes
+    at every call (`kernel_u`).  Returns ({key: max error}, {key: (ms, plain ms, library
+    ms, bound ms, bound by, extras)}), keyed "K10 <shape>", "K10 f32
+    <shape>", "P1" and "P1 f32" (errors also "K10 census <shape>")."""
     import torch
 
     from resshift_tpu_torch.ops import conv3x3 as cv, winograd as wg
     from resshift_tpu_torch.tools import direct_conv as direct
+    from resshift_tpu_torch.tools.profile_winograd import SHAPES as census
 
     g = torch.Generator(device=dev).manual_seed(15)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
     tol = {torch.bfloat16: (2 ** -6, 1e-3), torch.float32: (1e-4, 1e-5)}
     errs, timed = {}, {}
     for label, bsz, hw, c, co in K10_SHAPES:
-        key = f"K10 {label}"
         for dt in (torch.bfloat16, torch.float32):
             tag = "bf16" if dt == torch.bfloat16 else "f32"
+            key = f"K10 {label}" if dt == torch.bfloat16 else f"K10 f32 {label}"
+            kname = "winograd_tc_kernel" if dt == torch.bfloat16 else "winograd_kernel"
             x = (0.3 * rn(bsz, hw, hw, c)).to(dt)
             w, b = (0.05 * rn(3, 3, c, co)).to(dt), 0.1 * rn(co)
-            got = wg.winograd_conv3x3(x, w, b)
-            e = check(f"{key} {tag} {(bsz, hw, hw, c)} -> {co} vs plain", got,
-                      wg.winograd_conv3x3_plain(x, w, b), *tol[dt])
-            check(f"{key} {tag} vs direct conv (f32)", got, direct(x.float(), w.float(), b),
-                  *tol[dt])
-            if dt == torch.bfloat16:
-                errs[key] = e
-                nbytes = bsz * hw * hw * (c + co) * 2 + 16 * c * co * 2 + co * 4
-                ops = 2 * 16 * bsz * (hw // 2) ** 2 * c * co
-                t = (cuda_ms(torch, lambda: wg.winograd_conv3x3(x, w, b), reps=5),
-                     cuda_ms(torch, lambda: wg.winograd_conv3x3_plain(x, w, b), reps=5),
-                     cuda_ms(torch, lambda: direct(x, w, b), reps=5))
-                timed[key] = t + bound(nbytes, ops, "bf16")
-                print(f"  {key} ms {t[0]:.4f}, plain ms {t[1]:.4f}, F.conv2d ms {t[2]:.4f}, "
-                      f"bound ms {timed[key][3]:.4f} ({timed[key][4]})", flush=True)
+            fk = lambda: wg.winograd_conv3x3(x, w, b)
+            fp = lambda: wg.winograd_conv3x3_plain(x, w, b)
+            got = routed(torch, fk, wg.WINOGRAD_CONV3X3_TC, wg.WINOGRAD_CONV3X3, dt)
+            errs[key] = check(f"{key} {(bsz, hw, hw, c)} -> {co} vs plain", got, fp(), *tol[dt])
+            check(f"{key} vs direct conv (f32)", got, direct(x.float(), w.float(), b), *tol[dt])
+            del got
+            isz = x.element_size()
+            nbytes = bsz * hw * hw * (c + co) * isz + 16 * c * co * isz + co * 4
+            ops = 2 * 16 * bsz * (hw // 2) ** 2 * c * co
+            t = (cuda_ms(torch, fk, reps=5), cuda_ms(torch, fp, reps=5),
+                 cuda_ms(torch, lambda: direct(x, w, b), reps=5))
+            extra = {"kernel_device_ms": device_ms(torch, fk, (kname,), reps=5)[kname],
+                     "u_transform_ms": cuda_ms(torch, lambda: wg.kernel_u(w, dt), reps=5)}
+            timed[key] = t + bound(nbytes, ops, tag) + (extra,)
+            print(f"  {key} ms {t[0]:.4f} (kernel device ms {ms_str(extra['kernel_device_ms'])}, U "
+                  f"transform ms {extra['u_transform_ms']:.4f}), plain ms {t[1]:.4f}, F.conv2d ms "
+                  f"{t[2]:.4f}, bound ms {timed[key][3]:.4f} ({timed[key][4]})", flush=True)
+            del x
+    bf = torch.bfloat16
+    for label, _, hw, c, co in census:
+        key, bsz = f"K10 census {' '.join(label.split())}", K10_CENSUS_BATCH
+        x = (0.3 * rn(bsz, hw, hw, c)).to(bf)
+        w, b = (0.05 * rn(3, 3, c, co)).to(bf), 0.1 * rn(co)
+        got = routed(torch, lambda: wg.winograd_conv3x3(x, w, b), wg.WINOGRAD_CONV3X3_TC,
+                     wg.WINOGRAD_CONV3X3, bf)
+        errs[key] = check(f"{key} {(bsz, hw, hw, c)} -> {co} vs plain", got,
+                          wg.winograd_conv3x3_plain(x, w, b), *tol[bf])
+        check(f"{key} vs direct conv (f32)", got, direct(x.float(), w.float(), b), *tol[bf])
+        del x, got
     bsz, hw, _, c = P1_SHAPE
     for dt in (torch.bfloat16, torch.float32):
         tag = "bf16" if dt == torch.bfloat16 else "f32"
+        key = "P1" if dt == torch.bfloat16 else "P1 f32"
+        kname = "conv3x3_tc_kernel" if dt == torch.bfloat16 else "conv3x3_kernel"
         x, w = (0.3 * rn(bsz, hw, hw, c)).to(dt), (0.05 * rn(3, 3, c, c)).to(dt)
-        zero = torch.zeros(c, device=dev)
-        want = cv.conv3x3_plain(x, w)
-        e = max(check(f"P1 {tag} {P1_SHAPE} -> {c} rows {r} vs plain", cv.conv3x3(x, w, rows=r),
-                      want, *tol[dt]) for r in P1_ROWS)
-        if dt == torch.bfloat16:
-            errs["P1"] = e
-            nbytes = 2 * bsz * hw * hw * c * 2 + 9 * c * c * 2
-            t = (cuda_ms(torch, lambda: cv.conv3x3(x, w)),
-                 cuda_ms(torch, lambda: cv.conv3x3_plain(x, w)),
-                 cuda_ms(torch, lambda: direct(x, w, zero)))
-            timed["P1"] = t + bound(nbytes, 2 * bsz * hw * hw * 9 * c * c, "bf16")
-            print(f"  P1 ms {t[0]:.4f}, plain ms {t[1]:.4f}, F.conv2d ms {t[2]:.4f}, bound ms "
-                  f"{timed['P1'][3]:.4f} ({timed['P1'][4]})", flush=True)
+        want, ref = cv.conv3x3_plain(x, w), direct(x.float(), w.float(), None)
+        errs[key] = 0.0
+        for r in (None, *P1_ROWS):
+            got = routed(torch, lambda: cv.conv3x3(x, w, rows=r), cv.CONV3X3_TC, cv.CONV3X3, dt)
+            name = f"{key} {P1_SHAPE} -> {c} rows {r or 'whole'}"
+            errs[key] = max(errs[key], check(f"{name} vs plain", got, want, *tol[dt]))
+            check(f"{name} vs direct conv (f32)", got, ref, *tol[dt])
+        fk = lambda: cv.conv3x3(x, w)
+        t = (cuda_ms(torch, fk), cuda_ms(torch, lambda: cv.conv3x3_plain(x, w)),
+             cuda_ms(torch, lambda: direct(x, w, None)))
+        extra = {"kernel_device_ms": device_ms(torch, fk, (kname,))[kname],
+                 "ms_by_rows": {r: cuda_ms(torch, lambda: cv.conv3x3(x, w, rows=r))
+                                for r in P1_ROWS}}
+        nbytes = 2 * bsz * hw * hw * c * x.element_size() + 9 * c * c * x.element_size()
+        timed[key] = t + bound(nbytes, 2 * bsz * hw * hw * 9 * c * c, tag) + (extra,)
+        print(f"  {key} ms {t[0]:.4f} (whole rows; kernel device ms "
+              f"{ms_str(extra['kernel_device_ms'])}; by rows {extra['ms_by_rows']}), plain ms "
+              f"{t[1]:.4f}, F.conv2d ms {t[2]:.4f}, bound ms {timed[key][3]:.4f} "
+              f"({timed[key][4]})", flush=True)
     return errs, timed
 
 
@@ -637,10 +699,13 @@ def check_attn_variants(dev):
 
 def run_tools(root: Path) -> dict:
     """Phase 12: each tool of TOOL_RUNS in its own process on the card, at its
-    full width with two timed calls; each must exit 0 and launch its kernels.
-    Returns {kernel name: launches} summed over the tools."""
+    full width with two timed calls; each must exit 0, launch its kernels
+    and none of those it must not.  The conv tools' results must also hold
+    their kernel against F.conv2d in f32 within TOOL_BAND of the largest
+    output at every shape.  Returns {kernel name: launches} summed over the
+    tools."""
     counts: dict[str, int] = {}
-    for name, args, kernels in TOOL_RUNS:
+    for name, args, kernels, not_kernels in TOOL_RUNS:
         cmd = [sys.executable, "-m", f"resshift_tpu_torch.tools.{name}", *args, "--n-iter", "2",
                "--reps", "1"]
         t1 = time.perf_counter()
@@ -652,10 +717,24 @@ def run_tools(root: Path) -> dict:
         for line in lines[:-1]:
             print(f"  {name}: {line}", flush=True)
         got = {k: v["launches"] for k, v in out["launches"].items()}
-        print(f"  {name}: {time.perf_counter() - t1:.1f} s with start-up, launches {got}, on "
-              f"{out['device']['card']}", flush=True)
-        if not all(got.get(k, 0) > 0 for k in kernels):
-            raise AssertionError(f"{name} launched {got}; it must launch {kernels}")
+        print(f"  {name} {' '.join(args)}: {time.perf_counter() - t1:.1f} s with start-up, "
+              f"launches {got}, on {out['device']['card']}", flush=True)
+        if not all(got.get(k, 0) > 0 for k in kernels) or any(got.get(k, 0)
+                                                              for k in not_kernels):
+            raise AssertionError(f"{name} launched {got}; it must launch {kernels} and not "
+                                 f"{not_kernels}")
+        res = out["results"]
+        rels = {"": res} if "rel_err" in res else {k: r for k, r in res.items()
+                                                   if isinstance(r, dict) and "rel_err" in r}
+        if name in ("profile_winograd", "profile_conv") and not rels:
+            raise AssertionError(f"{name} reported no error against F.conv2d")
+        for label, r in rels.items():
+            if not r["rel_err"] <= TOOL_BAND[r["dtype"]]:
+                raise AssertionError(f"{name} {label}: error {r['rel_err']} of the largest "
+                                     f"output, above {TOOL_BAND[r['dtype']]}")
+        if rels:
+            print(f"  {name}: largest error {max(r['rel_err'] for r in rels.values()):.3e} of "
+                  f"the largest output over {len(rels)} shapes", flush=True)
         for k, v in got.items():
             counts[k] = counts.get(k, 0) + v
     return counts
@@ -697,6 +776,7 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
     want = {k: v * steps for k, v in n.items()}
     want.update(C=2, D=1, F=steps + 1 if tail_pinned else 0)
     want.update({"A f32": 0, "B f32": 0, "C f32": 0})  # bf16: no launch of the FMA routes
+    want.update({"K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0})  # off the sampler path
     return want
 
 
@@ -713,12 +793,14 @@ def read_launches(kernels: dict, sb) -> dict:
 def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     """The `kernels` report: each kernel's launches in its main path (the
     whole photo of phase 6 for A-E, the face of phase 9 for F, the tools of
-    phase 12 for K9, K10, P1 and P2, phase 5's f32 call for the FMA routes
-    of A, B and C; every phase under `launches_by_phase`), its error and times
-    from phase 2 (bf16, but f32 for the FMA routes), and its bound at the
-    timed shapes (bytes: each input read once, each output written once); F
-    at the f8 decoder tail, K10 at unet res@64, each with every timed shape
-    under `by_shape`; P2 in its f32 mode, every mode under `by_mode`."""
+    phase 12 for K9, K10, P1 and P2 in both routes of K10 and P1, phase 5's
+    f32 call for the FMA routes of A, B and C; every phase under
+    `launches_by_phase`), its error and times from phase 2 (bf16, but f32
+    for the FMA routes), and its bound at the timed shapes (bytes: each
+    input read once, each output written once); F at the f8 decoder tail,
+    K10 at unet res@64, each with every timed shape under `by_shape`, K10
+    and P1 with their kernels' profiler device time (and K10 its U
+    transform's time); P2 in its f32 mode, every mode under `by_mode`."""
     nh, n, c, hidden, bsz = NH, N, C, HIDDEN, BSZ
     s2 = 2  # bf16 bytes
     t, nw = 4096, 4096 // n
@@ -759,33 +841,46 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     rows[-1]["by_shape"] = {shape: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by"), t)) for shape, t in tails.items()}
 
-    # the profiling entry points' kernels: launched in phase 12 (the tools)
-    k10 = {k[4:]: t for k, t in timed.items() if k.startswith("K10 ")}
+    # the profiling entry points' kernels: launched in phase 12 (the tools);
+    # K10 and P1 in both routes
+    k10_repl = "resshift_tpu/ops/winograd.py:272 (K10, winograd_conv3x3 :237)"
+    p1_repl = "tools/profile_conv_pallas.py:78 (P1, conv3x3_pallas :69)"
+    k10 = {key: {label: timed[f"{key} {label}"] for label, *_ in K10_SHAPES}
+           for key in ("K10", "K10 f32")}
     p2 = timed["P2"]
+    csrc = "resshift_tpu_torch/csrc/"
     probes = {
-        "K9": ("resshift_tpu_torch/csrc/window_attn.cu",
+        "K9": (csrc + "window_attn.cu",
                "resshift_tpu/ops/swin_attention_pallas.py:197 (K9, _forward_pallas :158)",
                errs["K9"], timed["K9"]),
-        "K10": ("resshift_tpu_torch/csrc/winograd_conv3x3.cu",
-                "resshift_tpu/ops/winograd.py:272 (K10, winograd_conv3x3 :237)",
-                max(errs[f"K10 {k}"] for k in k10), k10[K10_SHAPES[0][0]]),
-        "P1": ("resshift_tpu_torch/csrc/conv3x3.cu",
-               "tools/profile_conv_pallas.py:78 (P1, conv3x3_pallas :69)", errs["P1"],
-               timed["P1"]),
-        "P2": ("resshift_tpu_torch/csrc/attn_variants.cu",
+        "K10": (csrc + "winograd_conv3x3_tc.cu", k10_repl,  # the census shapes' errors too
+                max(v for k, v in errs.items() if k.startswith("K10 ") and "f32" not in k),
+                k10["K10"][K10_SHAPES[0][0]]),
+        "K10 f32": (csrc + "winograd_conv3x3.cu", k10_repl,
+                    max(errs[f"K10 f32 {label}"] for label in k10["K10 f32"]),
+                    k10["K10 f32"][K10_SHAPES[0][0]]),
+        "P1": (csrc + "conv3x3_tc.cu", p1_repl, errs["P1"], timed["P1"]),
+        "P1 f32": (csrc + "conv3x3.cu", p1_repl, errs["P1 f32"], timed["P1 f32"]),
+        "P2": (csrc + "attn_variants.cu",
                "tools/profile_attn_variants.py:106 (P2, call_variant :99)", errs["P2"],
                p2["f32"][:2] + (None,) + p2["f32"][2:]),
     }
-    for key, (src, repl, err, (ms, plain_ms, lib_ms, b_ms, b_by)) in probes.items():
-        rows.append({"name": PROBE_KERNELS[key], "route": "cuda", "source": src,
-                     "replaces": repl, "launches": launches["12"][key], "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms,
-                     "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}})
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    rows[-3]["by_shape"] = {label: dict(zip(keys, t)) for label, t in k10.items()}
-    rows[-1]["by_mode"] = {sm: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
-                           for sm, t in p2.items()}
+    probe_rows = {}
+    for key, (src, repl, err, t) in probes.items():
+        row = {"name": PROBE_KERNELS[key], "route": "cuda", "source": src, "replaces": repl,
+               "launches": launches["12"][key], "max_abs_err": err, **dict(zip(keys, t[:5])),
+               "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}}
+        if key.startswith(("K10", "P1")):
+            row["dtype"] = "f32" if key.endswith("f32") else "bf16"
+            row.update(t[5])
+        rows.append(row)
+        probe_rows[key] = row
+    for key in ("K10", "K10 f32"):  # the shape timed first is the row's; both under by_shape
+        probe_rows[key]["by_shape"] = {label: {**dict(zip(keys, t[:5])), **t[5]}
+                                       for label, t in k10[key].items()}
+    probe_rows["P2"]["by_mode"] = {sm: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
+                                   for sm, t in p2.items()}
 
     # the f32 routes of A, B and C (FMA kernels), launched by phase 5's f32
     # call; their bound at f32 widths and the f32 FMA rate
@@ -827,8 +922,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from resshift_tpu_torch import _ext
-    from resshift_tpu_torch.ops import flash_attention as fa, shift as shift_ops
-    from resshift_tpu_torch.ops import swin_block as sb, tail, vq
+    from resshift_tpu_torch.ops import conv3x3 as cv, flash_attention as fa, shift as shift_ops
+    from resshift_tpu_torch.ops import swin_block as sb, tail, vq, winograd as wg
     from resshift_tpu_torch.pipeline import ResShiftPipeline
 
     # the f32 comparisons below hold only with TF32 off for matmuls and convs
@@ -881,11 +976,14 @@ def main() -> int:
     lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(2)).to(dev) * 2 - 1
     latents = {}
 
-    # A, B and C by route: the tensor-core kernels (bf16) and the FMA ones (f32)
+    # A, B and C by route: the tensor-core kernels (bf16) and the FMA ones
+    # (f32); K10 and P1, off the sampler path, must launch 0 times there
     all_kernels = {"A": sb.SWIN_WINDOW_ATTN_TC, "A f32": sb.SWIN_WINDOW_ATTN,
                    "B": sb.SWIN_MLP_TC, "B f32": sb.SWIN_MLP,
                    "C": fa.FLASH_ATTN_1H_TC, "C f32": fa.FLASH_ATTN_1H, "D": vq.VQ_NEAREST,
-                   "E": shift_ops.SHIFT_TOKENS, "F": tail.GN_SILU_CONV3X3}
+                   "E": shift_ops.SHIFT_TOKENS, "F": tail.GN_SILU_CONV3X3,
+                   "K10": wg.WINOGRAD_CONV3X3_TC, "K10 f32": wg.WINOGRAD_CONV3X3,
+                   "P1": cv.CONV3X3_TC, "P1 f32": cv.CONV3X3}
 
     def runner(p, x, seed, mask=None):
         """One sample call of pipeline `p` on `x` (and `mask`), the final
@@ -955,7 +1053,8 @@ def main() -> int:
     launches = {"3": read_launches(all_kernels, sb)}
     print(f"  launches in one sample call: {launches['3']}", flush=True)
     want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "E": 0, "F": 0, "fused shift": 90,
-                     "A f32": 0, "B f32": 0, "C f32": 0}
+                     "A f32": 0, "B f32": 0, "C f32": 0, "K10": 0, "K10 f32": 0, "P1": 0,
+                     "P1 f32": 0}
     if launches["3"] != want_launches:
         raise AssertionError(f"launch counts {launches['3']}, want {want_launches}")
     if out.shape != (BSZ, 256, 256, 3) or not torch.isfinite(out).all():

@@ -31,7 +31,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 _SOURCES = ("swin_window_attn", "swin_window_attn_tc", "swin_mlp", "swin_mlp_tc", "flash_attn_1h",
             "flash_attn_1h_tc", "vq_nearest", "shift_tokens", "gn_silu_conv3x3", "window_attn",
-            "winograd_conv3x3", "conv3x3", "attn_variants")
+            "winograd_conv3x3", "winograd_conv3x3_tc", "conv3x3", "conv3x3_tc", "attn_variants")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int

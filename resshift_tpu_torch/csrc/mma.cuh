@@ -1,6 +1,7 @@
 // Tensor-core and async-copy primitives of the bf16 kernels A
-// (swin_window_attn_tc.cu), B (swin_mlp_tc.cu) and C (flash_attn_1h_tc.cu),
-// as inline PTX for sm_90a.
+// (swin_window_attn_tc.cu), B (swin_mlp_tc.cu), C (flash_attn_1h_tc.cu),
+// K10 (winograd_conv3x3_tc.cu) and P1 (conv3x3_tc.cu), as inline PTX for
+// sm_90a.
 //
 //   mma_bf16     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: D += A B
 //                for a 16x16 bf16 A (4 registers), a 16x8 bf16 B (2
@@ -67,4 +68,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // lines, XOR-swizzled; `line` is the row's first line.
 __device__ __forceinline__ uint32_t swz(uint32_t line, int row, int chunk) {
   return line * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of RB-byte rows
+// (RB = 32 or 64: 128 / RB rows share a 128-byte line; or a multiple of
+// 128), the chunk XOR-swizzled by (row / (128 / RB)) % (RB / 16), or by
+// row % 8 where RB >= 128, so that any eight consecutive rows at one chunk,
+// aligned or not, fall in eight different chunks of the 32 banks.  At RB =
+// 128 this is swz(row, row, chunk).
+template <int RB>
+__device__ __forceinline__ uint32_t swz_row(int row, int chunk) {
+  constexpr int CPR = RB / 16 < 8 ? RB / 16 : 8, RPL = 8 / CPR;
+  return (uint32_t)row * RB + ((chunk ^ ((row / RPL) & (CPR - 1))) << 4);
 }

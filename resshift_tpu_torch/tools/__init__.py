@@ -2,11 +2,15 @@
 
     python -m resshift_tpu_torch.tools.profile_unet [--phases attn_kernel,attn_plain,...]
     python -m resshift_tpu_torch.tools.profile_winograd [--only=res@64] [--plain-formulation]
-    python -m resshift_tpu_torch.tools.profile_conv [--rows 1,2,4,8]
+        [--dtype bf16|f32]
+    python -m resshift_tpu_torch.tools.profile_conv [--rows 1,2,4,8] [--dtype bf16|f32]
     python -m resshift_tpu_torch.tools.profile_attn_variants
+    python -m resshift_tpu_torch.tools.profile_winograd_tilings [--batch 8]
 
 They reach kernels K9 (window attention), K10 (Winograd), P1 (direct 3x3
-conv) and P2 (softmax ablations) at the JAX package's tools' shapes.  Each
+conv) and P2 (softmax ablations) at the JAX package's tools' shapes;
+`profile_winograd_tilings` rebuilds K10's tensor-core kernel with other
+tile constants and times each build (card only).  Each
 prints one line per measurement and, last, one JSON object with the
 device, the results and each kernel's launches.  `--device` defaults to
 cuda and raises without a card; `--device cpu` runs the plain versions at
@@ -25,11 +29,14 @@ import subprocess
 import torch
 import torch.nn.functional as F
 
-__all__ = ["PEAK_BF16", "add_common_args", "pick_device", "card", "time_ms", "rate",
+__all__ = ["PEAK_BF16", "DTYPES", "add_common_args", "pick_device", "card", "time_ms", "rate",
            "direct_conv", "emit"]
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, at a 700 W limit)
 PEAK_BF16 = 989e12
+# --dtype of the conv tools: bf16 takes K10's and P1's tensor-core routes,
+# f32 their FMA routes
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def add_common_args(ap: argparse.ArgumentParser, n_iter: int, reps: int = 3) -> None:
@@ -92,11 +99,12 @@ def rate(flops: float, ms: float | None) -> dict:
             "mfu": None if tf is None else tf * 1e12 / PEAK_BF16}
 
 
-def direct_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """F.conv2d on NHWC x (seen as channels_last NCHW) and HWIO w, plus b;
-    NHWC out.  The library's conv that K10 and P1 are timed against."""
+def direct_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None) -> torch.Tensor:
+    """F.conv2d on NHWC x (seen as channels_last NCHW) and HWIO w, plus b
+    (None: no bias); NHWC out.  The library's conv that K10 (with its bias)
+    and P1 (without) are timed against."""
     wt = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    y = F.conv2d(x.permute(0, 3, 1, 2), wt, b.to(x.dtype), padding=1)
+    y = F.conv2d(x.permute(0, 3, 1, 2), wt, None if b is None else b.to(x.dtype), padding=1)
     return y.permute(0, 2, 3, 1)
 
 

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
 card, at shapes off the main path (small windows, ragged tiles, other
-widths, unaligned views), in float32 and bfloat16; for kernels B and C,
-which launch a tensor-core kernel in bf16 and an FMA kernel in f32, also
-which route ran; the same for kernel A, whose two calls must also give the
+widths, unaligned views), in float32 and bfloat16; for kernels B, C, K10
+and P1, which launch a tensor-core kernel in bf16 and an FMA kernel in f32,
+also which route ran (K10 and P1 also at full width, K10 at every conv
+family of profile_winograd's census, and two bf16 calls giving the same
+bits); the same for kernel A, whose two calls must also give the
 same bits, and whose statistics reduce holds against an f64 sum over 4096
 windows.
 
@@ -26,6 +28,7 @@ from resshift_tpu_torch.ops import tail
 from resshift_tpu_torch.ops import vq
 from resshift_tpu_torch.ops import window_attention as wa
 from resshift_tpu_torch.ops import winograd as wg
+from resshift_tpu_torch.tools import direct_conv, profile_winograd
 
 pytestmark = pytest.mark.cuda
 
@@ -265,17 +268,34 @@ def test_window_attention_ragged(gen, dt, m, n, c, nh, nw):
             _close(a.grad, b.grad, dt)
 
 
+def _conv_routed(fn, tc, fma, dt, variant=None):
+    """fn(), which must launch K10's or P1's tensor-core kernel `tc` once in
+    bf16 (with `variant`) and its FMA kernel `fma` once in f32."""
+    before = (tc.launches, fma.launches, tc.variants.get(variant, 0))
+    out = fn()
+    bf = dt == torch.bfloat16
+    assert (tc.launches, fma.launches) == (before[0] + bf, before[1] + (not bf))
+    if bf and variant is not None:
+        assert tc.variants.get(variant, 0) == before[2] + 1
+    return out
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w,c,co", [(2, 8, 8, 24, 40), (1, 10, 70, 70, 130),
                                         (3, 16, 34, 160, 8)])
 def test_winograd_ragged(gen, dt, b, h, w, c, co):
     """K10 with H = W = 8, strips of tiles past the image's edge, channel
-    counts that are no multiple of a chunk and Co blocks cut short."""
+    counts that are no multiple of a chunk and Co blocks cut short; bf16 on
+    the tensor-core route (16-byte copies where C and Co are multiples of 8),
+    f32 on the FMA route."""
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     x = (0.3 * rn(b, h, w, c)).to(dt)
     wk, bias = (rn(3, 3, c, co) / (9 * c) ** 0.5).to(dt), 0.1 * rn(co)
+    variant = "vec" if c % 8 == 0 and co % 8 == 0 else "elem"
     for bb in (bias, None):
-        _close(wg.winograd_conv3x3(x, wk, bb), wg.winograd_conv3x3_plain(x, wk, bb), dt)
+        got = _conv_routed(lambda: wg.winograd_conv3x3(x, wk, bb), wg.WINOGRAD_CONV3X3_TC,
+                           wg.WINOGRAD_CONV3X3, dt, variant)
+        _close(got, wg.winograd_conv3x3_plain(x, wk, bb), dt)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -285,7 +305,53 @@ def test_conv3x3_ragged(gen, dt, b, h, w, c, co, rows):
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     x = (0.3 * rn(b, h, w, c)).to(dt)
     wk = (rn(3, 3, c, co) / (9 * c) ** 0.5).to(dt)
-    _close(cv.conv3x3(x, wk, rows), cv.conv3x3_plain(x, wk), dt)
+    variant = "vec" if c % 8 == 0 and co % 8 == 0 else "elem"
+    got = _conv_routed(lambda: cv.conv3x3(x, wk, rows), cv.CONV3X3_TC, cv.CONV3X3, dt, variant)
+    _close(got, cv.conv3x3_plain(x, wk), dt)
+
+
+# full width: unet res@64 at batch 2, dec up0@256 (256 -> 128) at batch 1
+FULL_WIDTH = [(2, 64, 64, 160, 160), (1, 256, 256, 256, 128)]
+
+
+@pytest.mark.parametrize("kernel", ["K10", "P1"])
+@pytest.mark.parametrize("b,h,w,c,co", FULL_WIDTH)
+def test_conv_tc_full_width(gen, kernel, b, h, w, c, co):
+    """The bf16 routes at the profiling tools' widths against the plain
+    version, and against F.conv2d in f32 within the bf16 band; two calls
+    give the same bits."""
+    import torch.nn.functional as F
+
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = (0.3 * rn(b, h, w, c)).bfloat16()
+    wk = (0.05 * rn(3, 3, c, co)).bfloat16()
+    bias = 0.1 * rn(co) if kernel == "K10" else None
+    if kernel == "K10":
+        fk = lambda: wg.winograd_conv3x3(x, wk, bias)
+        got = _conv_routed(fk, wg.WINOGRAD_CONV3X3_TC, wg.WINOGRAD_CONV3X3, x.dtype, "vec")
+        _close(got, wg.winograd_conv3x3_plain(x, wk, bias), x.dtype)
+    else:
+        fk = lambda: cv.conv3x3(x, wk)
+        got = _conv_routed(fk, cv.CONV3X3_TC, cv.CONV3X3, x.dtype, "vec")
+        _close(got, cv.conv3x3_plain(x, wk), x.dtype)
+    ref = F.conv2d(x.float().permute(0, 3, 1, 2), wk.float().permute(3, 2, 0, 1), bias,
+                   padding=1).permute(0, 2, 3, 1)
+    _close(got, ref, x.dtype)
+    assert torch.equal(fk(), got)
+
+
+@pytest.mark.parametrize("h,c,co", [s[2:] for s in profile_winograd.SHAPES])
+def test_winograd_tc_census(gen, h, c, co):
+    """K10's bf16 route at every conv family of profile_winograd's census
+    (H, C, Co), one image: the Co blocks and channel chunks of the widest
+    families, against the plain version and F.conv2d in f32."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = (0.3 * rn(1, h, h, c)).bfloat16()
+    wk, bias = (0.05 * rn(3, 3, c, co)).bfloat16(), 0.1 * rn(co)
+    got = _conv_routed(lambda: wg.winograd_conv3x3(x, wk, bias), wg.WINOGRAD_CONV3X3_TC,
+                       wg.WINOGRAD_CONV3X3, x.dtype, "vec")
+    _close(got, wg.winograd_conv3x3_plain(x, wk, bias), x.dtype)
+    _close(got, direct_conv(x.float(), wk.float(), bias), x.dtype)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -353,6 +419,18 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
     with pytest.raises(ValueError):  # rows must divide 64
         cv.conv3x3(torch.zeros(1, 8, 8, 16, device="cuda"),
                    torch.zeros(3, 3, 16, 16, device="cuda"), rows=3)
+    with pytest.raises(ValueError):  # and 128 in bf16
+        cv.conv3x3(torch.zeros(1, 8, 8, 16, device="cuda").bfloat16(),
+                   torch.zeros(3, 3, 16, 16, device="cuda").bfloat16(), rows=3)
+    with pytest.raises(ValueError):  # rows = 128 only in bf16
+        cv.conv3x3(torch.zeros(1, 8, 8, 16, device="cuda"),
+                   torch.zeros(3, 3, 16, 16, device="cuda"), rows=128)
+    with pytest.raises(TypeError):
+        cv.conv3x3(torch.zeros(1, 8, 8, 16, device="cuda").half(),
+                   torch.zeros(3, 3, 16, 16, device="cuda").half())
+    with pytest.raises(ValueError):  # odd W, bf16
+        wg.winograd_conv3x3(torch.zeros(1, 8, 7, 16, device="cuda").bfloat16(),
+                            torch.zeros(3, 3, 16, 16, device="cuda").bfloat16())
     xt = torch.zeros(1, 64, 32, device="cuda")
     aw, ab = torch.ones(1, 32, device="cuda"), torch.zeros(1, 32, device="cuda")
     attn_w = (torch.zeros(32, 96, device="cuda"), torch.zeros(96, device="cuda"),

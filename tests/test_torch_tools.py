@@ -2,7 +2,8 @@
 the CPU at tiny sizes through the plain versions: each prints its JSON
 line with the device, its results (times null: none is measured on the
 CPU) and its kernels' launch counts (zero).  Without a card, the default
---device cuda raises."""
+--device cuda raises; profile_winograd_tilings, which builds kernels, has
+no CPU mode."""
 
 import json
 
@@ -10,7 +11,7 @@ import pytest
 import torch
 
 from resshift_tpu_torch.tools import (profile_attn_variants, profile_conv, profile_unet,
-                                      profile_winograd)
+                                      profile_winograd, profile_winograd_tilings)
 
 torch.set_num_threads(1)
 FAST = ["--device", "cpu", "--n-iter", "1", "--reps", "1"]
@@ -46,8 +47,15 @@ def test_profile_results(capsys):
 
 
 @pytest.mark.parametrize("tool", [profile_unet, profile_winograd, profile_conv,
-                                  profile_attn_variants])
+                                  profile_attn_variants, profile_winograd_tilings])
 def test_tool_without_a_card_raises(monkeypatch, tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tool.main(["--batch", "1"])
+
+
+def test_tilings_probe_has_no_cpu_mode():
+    """profile_winograd_tilings builds kernels: on the CPU it raises before
+    it writes or compiles anything."""
+    with pytest.raises(RuntimeError, match="needs the card"):
+        profile_winograd_tilings.main(["--device", "cpu"])
