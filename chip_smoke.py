@@ -9,7 +9,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      print each kernel's registers and spills;
   2. hold each kernel (A swin_window_attn, B swin_mlp, C flash_attn_1h,
      D vq_nearest, E shift_tokens) against its plain PyTorch version at the
-     main paths' shapes, in bf16 and f32, and time both; A, B and C run bf16
+     main paths' shapes, in bf16 and f32, and time both (D at its three
+     decode shapes, with the profiler's device time of its search and its
+     second pass vq_finalize); A, B and C run bf16
      on their tensor-core kernels (swin_window_attn_tc, swin_mlp_tc,
      flash_attn_1h_tc) and f32 on their FMA kernels, and each call is
      checked for its route; both routes are timed, C beside
@@ -21,9 +23,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
   3. run realsr_v1 at full width (seeded random weights, bf16, 15 steps,
      batch 8 of 64x64 LQ tiles) through ResShiftPipeline.sample and check
      each kernel's launch count in that one call (here and in phases 6, 7,
-     9 and 10 every A, B and C launch must be the tensor-core route; the
-     profiles of phases 3, 6, 7 and 9 give A's and the statistics reduce's
-     device time by name);
+     9 and 10 every A, B and C launch must be the tensor-core route, D's
+     search and second pass launch once, K9, K10 and P1 never; the
+     profiles of phases 3, 6, 7 and 9 give A's, the statistics reduce's and
+     D's device time by name);
   4. run the same sample through the plain versions (patched in here only)
      and require >= 35 dB PSNR on the final latent;
   5. run one padded, chopped input through sample, in bf16 and in f32 (the
@@ -50,10 +53,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      on to a multiple of 128);
 phase 2 also holds kernel F (gn_silu_conv3x3) against its plain version at
 the UNet head's and the decoder tails' shapes, with the cuDNN composition
-timed beside it, and the kernels of the profiling entry points: K9
-window_attn at (4096, 64, 192) with one bias and with 64 (shift mask), in
-bf16 and f32, timed beside F.multi_head_attention_forward, and the order
-of its gradients; K10 winograd_conv3x3 at unet res@64 and dec up0@256
+timed beside it, and the kernels of the profiling entry points: K9 at
+(4096, 64, 192) with one bias and with 64 (shift mask), in bf16 (the
+tensor-core kernel window_attn_tc) and f32 (the FMA kernel window_attn),
+each call checked for its route, both timed by events and by the
+profiler's device time beside F.multi_head_attention_forward, and the
+order of its gradients; K10 winograd_conv3x3 at unet res@64 and dec up0@256
 with the batch cut to 8, against the plain formulation and F.conv2d; P1
 conv3x3 at (8, 64, 64, 160) with whole rows and 1 and 4 rows per CTA; K10
 and P1 in both routes (bf16: the tensor-core kernels winograd_conv3x3_tc
@@ -63,11 +68,11 @@ same dtype (with the bias for K10, without for P1) and K10's U transform;
 P2 attn_variants, all five softmaxes, at (8, 4096, 192);
  12. the four tools `python -m resshift_tpu_torch.tools.<tool>` in
      subprocesses (profile_unet, profile_winograd on all nine conv families
-     of its census, profile_conv, profile_attn_variants; profile_winograd
-     and profile_conv once more with --dtype f32), each at its full width
-     with few iterations: each exits 0, launches its kernels and, for K10
-     and P1, not the other dtype's route (their counts are the tools' own,
-     read from the JSON line each prints);
+     of its census, profile_conv, profile_attn_variants; profile_unet's K9
+     phase, profile_winograd and profile_conv once more with --dtype f32),
+     each at its full width with few iterations: each exits 0, launches its
+     kernels and, for K9, K10 and P1, not the other dtype's route (their
+     counts are the tools' own, read from the JSON line each prints);
 then print the `kernels` JSON line and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
@@ -94,6 +99,11 @@ WIDE_LATENTS = [(192, 256), (512, 512)]
 TAIL_SHAPES = [("UNet head", 8, 160, 64, 64, 3, "f32"), ("faceir head", 1, 160, 64, 64, 8, "f32"),
                ("f4 tail", 8, 128, 256, 256, 3, "bf16"), ("f8 tail", 1, 64, 512, 512, 3, "bf16")]
 
+# kernel D's shapes (key, latent rows, codes, D): the f4 tile batch (phase
+# 3), one f8 face (phase 9), a 512x512 photo's f4 latent (phase 7)
+VQ_SHAPES = [("D", 8 * 64 * 64, 8192, 3), ("D f8", 64 * 64, 4096, 8),
+             ("D 512x512", 512 * 512, 8192, 3)]
+
 # the profiling entry points' kernels: K9 at profile_unet's attention phase
 # (64 tiles x 64 windows), K10 at two of profile_winograd's SHAPES and P1 at
 # profile_conv's shape with the batch cut to 8, P2 at (8, 4096, 192)
@@ -103,10 +113,12 @@ K10_CENSUS_BATCH = 2  # K10's bf16 route at every conv family of profile_winogra
 P1_SHAPE = (8, 64, 64, 160)
 P1_ROWS = (1, 4)  # P1's rows per CTA: checked in phase 2, swept by profile_conv in phase 12
 # phase 12: each tool with its arguments, the kernels it must launch and those
-# it must not (K10 and P1 take their tensor-core routes in bf16, their FMA
-# routes in f32); profile_winograd covers all nine conv families in bf16
+# it must not (K9, K10 and P1 take their tensor-core routes in bf16, their
+# FMA routes in f32); profile_winograd covers all nine conv families in bf16
 TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"],
-              ["window_attn", "swin_window_attn_tc"], []),
+              ["window_attn_tc", "swin_window_attn_tc"], ["window_attn"]),
+             ("profile_unet", ["--phases", "attn_kernel", "--dtype", "f32"], ["window_attn"],
+              ["window_attn_tc"]),
              ("profile_winograd", [], ["winograd_conv3x3_tc"], ["winograd_conv3x3"]),
              ("profile_winograd", ["--only=res@64", "--dtype", "f32"], ["winograd_conv3x3"],
               ["winograd_conv3x3_tc"]),
@@ -117,8 +129,9 @@ TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"],
 # the conv tools' error against F.conv2d in f32, relative to the largest
 # output: phase 2's bands
 TOOL_BAND = {"bf16": 2 ** -6, "f32": 1e-4}
-PROBE_KERNELS = {"K9": "window_attn", "K10": "winograd_conv3x3_tc", "K10 f32": "winograd_conv3x3",
-                 "P1": "conv3x3_tc", "P1 f32": "conv3x3", "P2": "attn_variants"}
+PROBE_KERNELS = {"K9": "window_attn_tc", "K9 f32": "window_attn", "K10": "winograd_conv3x3_tc",
+                 "K10 f32": "winograd_conv3x3", "P1": "conv3x3_tc", "P1 f32": "conv3x3",
+                 "P2": "attn_variants"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 PEAK_BYTES = 3.35e12
@@ -154,11 +167,12 @@ def check(name: str, got, want, rel: float, atol: float) -> float:
 
 
 # kernels whose device time every profile reports, whether or not in its top 15:
-# A's routes and the reduce, and the work around the UNet's cuDNN convs that
-# a fused GN+SiLU+conv kernel would take (the convs themselves, cuDNN's
-# layout transposes, the GroupNorm moments)
+# A's routes and the reduce, D's search and second pass, and the work around
+# the UNet's cuDNN convs that a fused GN+SiLU+conv kernel would take (the
+# convs themselves, cuDNN's layout transposes, the GroupNorm moments)
 PROFILED = ("swin_window_attn_tc_kernel", "swin_window_attn_kernel", "stats_reduce_kernel",
-            "fprop_implicit_gemm", "nchwToNhwc", "nhwcToNchw", "RowwiseMoments")
+            "vq_nearest_kernel", "vq_finalize_kernel", "fprop_implicit_gemm", "nchwToNhwc",
+            "nhwcToNchw", "RowwiseMoments")
 
 
 def device_ms(torch, fn, names, reps: int = 10, tries: int = 3) -> dict:
@@ -365,9 +379,9 @@ def check_kernels(dev):
     del q, k, v
 
     # D at the decodes: 8 x 64^2 latent rows against the f4 8192 x 3 codebook,
-    # and one face's 64^2 rows against the f8 4096 x 8 one (147 KB of shared
-    # memory)
-    for key, m_rows, k, d in (("D", bsz * 4096, 8192, 3), ("D f8", 4096, 4096, 8)):
+    # one face's 64^2 rows against the f8 4096 x 8 one, and a 512x512
+    # photo's 512^2 rows against the f4 one (phase 7's call)
+    for key, m_rows, k, d in VQ_SHAPES:
         z, emb = rn(m_rows, d), 0.5 * rn(k, d)
         got = vq.nearest_codebook_indices(z, emb)
         want = vq.nearest_codebook_indices_plain(z, emb)
@@ -385,9 +399,15 @@ def check_kernels(dev):
         print(f"  {key} f32 ({m_rows} x {k} x {d}): {differ.numel()} of {m_rows} indices "
               f"differ, all at near-ties (1e-6 relative; largest distance gap "
               f"{errs[key]:.3e})", flush=True)
-        timed[key] = (cuda_ms(torch, lambda: vq.nearest_codebook_indices(z, emb)),
-                      cuda_ms(torch, lambda: vq.nearest_codebook_indices_plain(z, emb)))
-        print(f"  {key} ms {timed[key][0]:.4f}, plain ms {timed[key][1]:.4f}", flush=True)
+        del got, want
+        fk = lambda: vq.nearest_codebook_indices(z, emb)
+        dev_ms = device_ms(torch, fk, ("vq_nearest_kernel", "vq_finalize_kernel"))
+        timed[key] = (cuda_ms(torch, fk),
+                      cuda_ms(torch, lambda: vq.nearest_codebook_indices_plain(z, emb)), dev_ms)
+        print(f"  {key} ms {timed[key][0]:.4f}, plain ms {timed[key][1]:.4f}; device ms by "
+              f"kernel (profiler): {dev_ms}", flush=True)
+    del z, emb
+    torch.cuda.empty_cache()  # the plain version's 8.6 GB distance matrices at 512^2 rows
     return errs, timed
 
 
@@ -510,13 +530,15 @@ def check_tail(dev):
 def check_window_attention(dev):
     """Phase 2, kernel K9 against its plain version at (4096, 64, 192), 6
     heads, with one bias and with 64 (rel-pos bias plus the shift mask of a
-    64x64 map), in bf16 and f32; its gradient (the autograd.Function)
-    against plain autograd at 64 windows in f32 (the backward recomputes
-    through the plain version, so this holds the order of the gradients,
-    not a kernel).  The library's one call for the same function is
-    F.multi_head_attention_forward with the bias as a float mask of shape
-    (M * nh, N, N).  Returns (max bf16 error, (ms, plain ms, library ms,
-    bound ms, bound by)), timed in bf16 with one bias."""
+    64x64 map), in bf16 (the tensor-core kernel window_attn_tc) and f32 (the
+    FMA kernel window_attn), each call checked for its route; its gradient
+    (the autograd.Function) against plain autograd at 64 windows in f32
+    (the backward recomputes through the plain version, so this holds the
+    order of the gradients, not a kernel).  The library's one call for the
+    same function is F.multi_head_attention_forward with the bias as a
+    float mask of shape (M * nh, N, N).  Returns ({"K9": max bf16 error,
+    "K9 f32": max f32 error}, {key: (ms, plain ms, library ms, bound ms,
+    bound by, {"kernel_device_ms": ...})}), timed with one bias."""
     import torch
     import torch.nn.functional as F
 
@@ -527,9 +549,11 @@ def check_window_attention(dev):
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
     m, n, c, nh = K9_WINDOWS, N, C, NH
     tol = {torch.bfloat16: (2 ** -6, 1e-3), torch.float32: (1e-4, 1e-5)}
-    err, timed = 0.0, None
+    errs, timed = {"K9": 0.0, "K9 f32": 0.0}, {}
     for dt in (torch.bfloat16, torch.float32):
         tag = "bf16" if dt == torch.bfloat16 else "f32"
+        key, kname = ("K9", "window_attn_tc_kernel") if tag == "bf16" else ("K9 f32",
+                                                                           "window_attn_kernel")
         for nw in (1, 64):
             x = rn(m, n, c).to(dt)
             wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
@@ -539,11 +563,13 @@ def check_window_attention(dev):
                 bm = bm + torch.as_tensor(shifted_window_mask(64, 64, 8, 4), device=dev)[:, None]
             fk = lambda: wa.window_attention(x, *wts, bm, nh)
             fp = lambda: wa.window_attention_plain(x, *wts, bm, nh)
-            e = check(f"K9 {tag} ({m}, {n}, {c}) nW {nw}", fk(), fp(), *tol[dt])
-            if dt == torch.bfloat16:
-                err = max(err, e)
-            if (tag, nw) == ("bf16", 1):
-                nbytes = 2 * m * n * c * 2 + (4 * c * c + 4 * c) * 2 + nh * n * n * 4
+            got = routed(torch, fk, wa.WINDOW_ATTN_TC, wa.WINDOW_ATTN, dt)
+            errs[key] = max(errs[key], check(f"{key} ({m}, {n}, {c}) nW {nw}", got, fp(),
+                                             *tol[dt]))
+            del got
+            if nw == 1:
+                isz = x.element_size()
+                nbytes = 2 * m * n * c * isz + (4 * c * c + 4 * c) * isz + nh * n * n * 4
                 ops = m * (2 * n * c * 3 * c + 4 * n * n * c + 2 * n * c * c)
                 mask = bm.to(dt).expand(m, nh, n, n).reshape(m * nh, n, n)
                 xt = x.transpose(0, 1)
@@ -552,11 +578,18 @@ def check_window_attention(dev):
                     wts[3], training=False, need_weights=False, attn_mask=mask)[0]
                 check(f"K9's library call {tag} nW {nw} vs plain", fl().transpose(0, 1), fp(),
                       *tol[dt])
-                timed = ((cuda_ms(torch, fk), cuda_ms(torch, fp), cuda_ms(torch, fl))
-                         + bound(nbytes, ops, "bf16"))
-                print(f"  K9 ms {timed[0]:.4f}, plain ms {timed[1]:.4f}, "
-                      f"multi_head_attention_forward ms {timed[2]:.4f}, bound ms {timed[3]:.4f} "
-                      f"({timed[4]})", flush=True)
+                reps = 10 if tag == "bf16" else 3
+                extra = {"kernel_device_ms": device_ms(torch, fk, (kname,), reps=reps)[kname]}
+                timed[key] = ((cuda_ms(torch, fk, reps=reps), cuda_ms(torch, fp, reps=reps),
+                               cuda_ms(torch, fl, reps=reps)) + bound(nbytes, ops, tag)
+                              + (extra,))
+                t = timed[key]
+                print(f"  {key} ms {t[0]:.4f} ({'tensor cores' if tag == 'bf16' else 'FMA'}; "
+                      f"kernel device ms {ms_str(extra['kernel_device_ms'])}), plain ms "
+                      f"{t[1]:.4f}, multi_head_attention_forward ms {t[2]:.4f} "
+                      f"({t[2] / t[0]:.2f}x the kernel's time), bound ms {t[3]:.4f} ({t[4]})",
+                      flush=True)
+                del mask, xt
     ins = [t.detach().float().clone().requires_grad_() for t in (x[:64], *wts, bm[:1])]
     ref = [t.detach().clone().requires_grad_() for t in ins]
     gy = rn(64, n, c)
@@ -564,7 +597,7 @@ def check_window_attention(dev):
     wa.window_attention_plain(*ref, nh).backward(gy)
     for name, a, b in zip(("x", "wqkv", "bqkv", "wproj", "bproj", "bias"), ins, ref):
         check(f"K9 backward order f32 (64, {n}, {c}) d{name}", a.grad, b.grad, 1e-4, 1e-5)
-    return err, timed
+    return errs, timed
 
 
 def check_conv_probes(dev):
@@ -774,9 +807,10 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
             else:
                 n["E"] += 2 * shifted
     want = {k: v * steps for k, v in n.items()}
-    want.update(C=2, D=1, F=steps + 1 if tail_pinned else 0)
+    want.update({"C": 2, "D": 1, "D finalize": 1, "F": steps + 1 if tail_pinned else 0})
     want.update({"A f32": 0, "B f32": 0, "C f32": 0})  # bf16: no launch of the FMA routes
-    want.update({"K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0})  # off the sampler path
+    want.update({"K9": 0, "K9 f32": 0, "K10": 0, "K10 f32": 0, "P1": 0,
+                 "P1 f32": 0})  # off the sampler path
     return want
 
 
@@ -809,8 +843,10 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     b_bytes = 2 * bsz * t * c * s2 + (2 * c * hidden + hidden + c) * s2 + 4 * bsz * c * 4
     b_ops = bsz * t * 4 * c * hidden
     c_bytes, c_ops = 4 * bsz * 4096 * 512 * s2, 4 * bsz * 4096 ** 2 * 512
-    m_rows = bsz * 4096
-    d_bytes, d_ops = m_rows * 3 * 4 + 8192 * 3 * 4 + m_rows * 4, m_rows * 8192 * (2 * 3 + 2)
+    # D: z and the codebook read once, the int64 indices written once; D
+    # multiply-adds, a compare and a select a (row, code) pair
+    vq_bound = lambda m_rows, k, d: bound(m_rows * d * 4 + k * d * 4 + m_rows * 8,
+                                          m_rows * k * (2 * d + 2), "f32")
     e_bytes = 2 * WIDE_LATENTS[0][0] * WIDE_LATENTS[0][1] * c * s2  # a permutation: no operations
     a_repl = "resshift_tpu/ops/swin_block_pallas.py:389 (K1) and :496 (K3)"
     b_repl = "resshift_tpu/ops/swin_block_pallas.py:629 (K2) and :701 (K4)"
@@ -823,7 +859,7 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
         "C": ("flash_attn_1h_tc", "resshift_tpu_torch/csrc/flash_attn_1h_tc.cu", c_repl,
               bound(c_bytes, c_ops, "bf16")),
         "D": ("vq_nearest", "resshift_tpu_torch/csrc/vq_nearest.cu",
-              "resshift_tpu/ops/vq_pallas.py:70 (K6)", bound(d_bytes, d_ops, "f32")),
+              "resshift_tpu/ops/vq_pallas.py:70 (K6)", vq_bound(*VQ_SHAPES[0][1:])),
         "E": ("shift_tokens", "resshift_tpu_torch/csrc/shift_tokens.cu",
               "resshift_tpu/ops/shift_pallas.py:115 (K7)", bound(e_bytes, 0, "bf16")),
     }
@@ -840,19 +876,31 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
                      "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}})
     rows[-1]["by_shape"] = {shape: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
                                              "bound_by"), t)) for shape, t in tails.items()}
+    # D: no library call; its second pass (vq_finalize) counted apart, each
+    # shape's time, bound and device time by kernel
+    d_row = rows[3]
+    d_row.update(library_ms=None, device_ms_by_kernel=timed["D"][2],
+                 finalize_launches=launches["6"]["D finalize"],
+                 finalize_launches_by_phase={ph: n.get("D finalize", 0)
+                                             for ph, n in launches.items()})
+    d_row["by_shape"] = {f"{m} x {k} x {d}": {"ms": timed[key][0], "plain_ms": timed[key][1],
+                                              **dict(zip(("bound_ms", "bound_by"),
+                                                         vq_bound(m, k, d))),
+                                              "device_ms_by_kernel": timed[key][2]}
+                         for key, m, k, d in VQ_SHAPES}
 
     # the profiling entry points' kernels: launched in phase 12 (the tools);
-    # K10 and P1 in both routes
+    # K9, K10 and P1 in both routes
     k10_repl = "resshift_tpu/ops/winograd.py:272 (K10, winograd_conv3x3 :237)"
     p1_repl = "tools/profile_conv_pallas.py:78 (P1, conv3x3_pallas :69)"
     k10 = {key: {label: timed[f"{key} {label}"] for label, *_ in K10_SHAPES}
            for key in ("K10", "K10 f32")}
     p2 = timed["P2"]
     csrc = "resshift_tpu_torch/csrc/"
+    k9_repl = "resshift_tpu/ops/swin_attention_pallas.py:197 (K9, _forward_pallas :158)"
     probes = {
-        "K9": (csrc + "window_attn.cu",
-               "resshift_tpu/ops/swin_attention_pallas.py:197 (K9, _forward_pallas :158)",
-               errs["K9"], timed["K9"]),
+        "K9": (csrc + "window_attn_tc.cu", k9_repl, errs["K9"], timed["K9"]),
+        "K9 f32": (csrc + "window_attn.cu", k9_repl, errs["K9 f32"], timed["K9 f32"]),
         "K10": (csrc + "winograd_conv3x3_tc.cu", k10_repl,  # the census shapes' errors too
                 max(v for k, v in errs.items() if k.startswith("K10 ") and "f32" not in k),
                 k10["K10"][K10_SHAPES[0][0]]),
@@ -871,7 +919,7 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
         row = {"name": PROBE_KERNELS[key], "route": "cuda", "source": src, "replaces": repl,
                "launches": launches["12"][key], "max_abs_err": err, **dict(zip(keys, t[:5])),
                "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}}
-        if key.startswith(("K10", "P1")):
+        if key.startswith(("K9", "K10", "P1")):
             row["dtype"] = "f32" if key.endswith("f32") else "bf16"
             row.update(t[5])
         rows.append(row)
@@ -923,7 +971,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from resshift_tpu_torch import _ext
     from resshift_tpu_torch.ops import conv3x3 as cv, flash_attention as fa, shift as shift_ops
-    from resshift_tpu_torch.ops import swin_block as sb, tail, vq, winograd as wg
+    from resshift_tpu_torch.ops import swin_block as sb, tail, vq, window_attention as wa
+    from resshift_tpu_torch.ops import winograd as wg
     from resshift_tpu_torch.pipeline import ResShiftPipeline
 
     # the f32 comparisons below hold only with TF32 off for matmuls and convs
@@ -941,8 +990,8 @@ def main() -> int:
     _ext.build_all()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted((ROOT / "resshift_tpu_torch" / "_build").glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+        for line in log.read_text().splitlines():  # each kernel's name, then its counts
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  {log.stem}: {line.strip()}")
 
     # ---------------------------------------------------------------- 2
@@ -951,7 +1000,9 @@ def main() -> int:
     timed["E"], errs["E"] = check_shift(dev), 0.0
     timed["wide block"] = check_wide_block(dev)
     errs["F"], timed["F"] = check_tail(dev)
-    errs["K9"], timed["K9"] = check_window_attention(dev)
+    k9_errs, k9_timed = check_window_attention(dev)
+    errs.update(k9_errs)
+    timed.update(k9_timed)
     conv_errs, conv_timed = check_conv_probes(dev)
     errs.update(conv_errs)
     timed.update(conv_timed)
@@ -977,11 +1028,13 @@ def main() -> int:
     latents = {}
 
     # A, B and C by route: the tensor-core kernels (bf16) and the FMA ones
-    # (f32); K10 and P1, off the sampler path, must launch 0 times there
+    # (f32); D's search and its second pass; K9, K10 and P1, off the sampler
+    # path, must launch 0 times there
     all_kernels = {"A": sb.SWIN_WINDOW_ATTN_TC, "A f32": sb.SWIN_WINDOW_ATTN,
                    "B": sb.SWIN_MLP_TC, "B f32": sb.SWIN_MLP,
                    "C": fa.FLASH_ATTN_1H_TC, "C f32": fa.FLASH_ATTN_1H, "D": vq.VQ_NEAREST,
-                   "E": shift_ops.SHIFT_TOKENS, "F": tail.GN_SILU_CONV3X3,
+                   "D finalize": vq.VQ_FINALIZE, "E": shift_ops.SHIFT_TOKENS,
+                   "F": tail.GN_SILU_CONV3X3, "K9": wa.WINDOW_ATTN_TC, "K9 f32": wa.WINDOW_ATTN,
                    "K10": wg.WINOGRAD_CONV3X3_TC, "K10 f32": wg.WINOGRAD_CONV3X3,
                    "P1": cv.CONV3X3_TC, "P1 f32": cv.CONV3X3}
 
@@ -1052,9 +1105,9 @@ def main() -> int:
     out = run("kernel")
     launches = {"3": read_launches(all_kernels, sb)}
     print(f"  launches in one sample call: {launches['3']}", flush=True)
-    want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "E": 0, "F": 0, "fused shift": 90,
-                     "A f32": 0, "B f32": 0, "C f32": 0, "K10": 0, "K10 f32": 0, "P1": 0,
-                     "P1 f32": 0}
+    want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "D finalize": 1, "E": 0, "F": 0,
+                     "fused shift": 90, "A f32": 0, "B f32": 0, "C f32": 0, "K9": 0, "K9 f32": 0,
+                     "K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0}
     if launches["3"] != want_launches:
         raise AssertionError(f"launch counts {launches['3']}, want {want_launches}")
     if out.shape != (BSZ, 256, 256, 3) or not torch.isfinite(out).all():

@@ -31,7 +31,8 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 _SOURCES = ("swin_window_attn", "swin_window_attn_tc", "swin_mlp", "swin_mlp_tc", "flash_attn_1h",
             "flash_attn_1h_tc", "vq_nearest", "shift_tokens", "gn_silu_conv3x3", "window_attn",
-            "winograd_conv3x3", "winograd_conv3x3_tc", "conv3x3", "conv3x3_tc", "attn_variants")
+            "window_attn_tc", "winograd_conv3x3", "winograd_conv3x3_tc", "conv3x3", "conv3x3_tc",
+            "attn_variants")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
@@ -108,13 +109,15 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
 
 
 class Kernel:
-    """One C entry point of one kernel library, with its launch count.
+    """One C entry point of one kernel library (`lib`, by default the entry's
+    own name: csrc/<lib>.cu), with its launch count.
 
     `launches` counts calls that launched the kernel; `variants` splits the
     count by the label a wrapper passes (e.g. "shift")."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, lib: str | None = None):
         self.name = name
+        self.lib = lib or name
         self.argtypes = argtypes
         self.launches = 0
         self.variants: dict[str, int] = {}
@@ -126,7 +129,7 @@ class Kernel:
 
     def __call__(self, *args, variant: str | None = None) -> None:
         if self._fn is None:
-            fn = getattr(_library(self.name), self.name)
+            fn = getattr(_library(self.lib), self.name)
             fn.argtypes = self.argtypes + [P]
             fn.restype = I
             self._fn = fn

@@ -1,13 +1,19 @@
 """Standalone window attention over (M, N, C) windows: the qkv projection,
 the biased softmax per head and the output projection.
 
-Kernel K9 `window_attn` (csrc/window_attn.cu) replaces the TPU kernel
-`swin_attention_pallas._forward_pallas` (K9, via `fused_window_attention`).
-`models/swin.py::WindowAttention` and `tools/profile_unet.py` reach it.
-The wrapper runs the plain PyTorch version for a CPU tensor, launches the
-kernel for a CUDA tensor, and raises for anything else.  The gradient is a
-`torch.autograd.Function` whose backward recomputes through the plain
-version, as the JAX package's custom VJP recomputes through XLA.
+Kernel K9 replaces the TPU kernel `swin_attention_pallas._forward_pallas`
+(K9, via `fused_window_attention`) with two routes, picked by
+`window_attn_route` from the dtype and the shape: bf16 with C % 16 == 0 and
+heads 16 or 32 wide runs `window_attn_tc` (csrc/window_attn_tc.cu, kernel
+A's tensor-core body without its GroupNorm, roll, residual and statistics);
+f32, and bf16 at other head widths, run the FMA kernel `window_attn`
+(csrc/window_attn.cu).  Counters `WINDOW_ATTN_TC` and `WINDOW_ATTN` say
+which ran.  `models/swin.py::WindowAttention` and `tools/profile_unet.py`
+reach it.  The wrapper runs the plain PyTorch version for a CPU tensor,
+launches the route's kernel for a CUDA tensor, and raises for anything
+else.  The gradient is a `torch.autograd.Function` whose backward
+recomputes through the plain version, as the JAX package's custom VJP
+recomputes through XLA.
 
 Rounding points (the JAX package's `xla_window_attention`): qkv and proj
 round their product to the activation dtype before adding the bias; q is
@@ -23,9 +29,11 @@ import torch
 from .. import _ext
 from .._ext import I, P
 
-__all__ = ["window_attention_plain", "window_attention", "WindowAttentionFn", "WINDOW_ATTN"]
+__all__ = ["window_attention_plain", "window_attention", "window_attn_route", "WindowAttentionFn",
+           "WINDOW_ATTN", "WINDOW_ATTN_TC"]
 
 WINDOW_ATTN = _ext.Kernel("window_attn", [P] * 7 + [I] * 6)
+WINDOW_ATTN_TC = _ext.Kernel("window_attn_tc", [P] * 7 + [I] * 5)
 
 
 def rounded(v: float, dt: torch.dtype) -> float:
@@ -51,24 +59,44 @@ def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: i
     return out @ wproj.to(dt) + bproj.to(dt)
 
 
+def window_attn_route(dtype: torch.dtype, n: int, c: int, num_heads: int) -> str:
+    """Which kernel takes windows of `n` tokens x `c` channels in
+    `num_heads` heads: "tc" (bf16 with C % 16 == 0 and heads 16 or 32
+    wide: `window_attn_tc`, on the tensor cores) or "fma" (f32 at any
+    shape, bf16 at the other head widths: `window_attn`).  Both take n <=
+    64, C <= 256 and heads up to 64 wide; raises ValueError for other
+    shapes, TypeError for dtypes other than float32 and bfloat16."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"window_attn takes float32 or bfloat16, not {dtype}")
+    hd = c // num_heads if num_heads > 0 and c % num_heads == 0 else 0
+    if not (0 < n <= 64 and 0 < c <= 256 and 0 < hd <= 64):
+        raise ValueError(f"window_attn: no route for N={n}, C={c}, heads={num_heads}")
+    return "tc" if dtype == torch.bfloat16 and c % 16 == 0 and hd in (16, 32) else "fma"
+
+
 def _kernel(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: int) -> torch.Tensor:
     if xw.dim() != 3:
         raise ValueError(f"window_attn takes (M, N, C) windows, not {tuple(xw.shape)}")
     m, n, c = xw.shape
+    route = window_attn_route(xw.dtype, n, c, num_heads)
     nw = bias_mask.shape[0]
-    if (n > 64 or c > 256 or c % num_heads or c // num_heads > 64 or m % nw
-            or bias_mask.shape != (nw, num_heads, n, n) or wqkv.shape != (c, 3 * c)
+    if (m % nw or bias_mask.shape != (nw, num_heads, n, n) or wqkv.shape != (c, 3 * c)
             or bqkv.shape != (3 * c,) or wproj.shape != (c, c) or bproj.shape != (c,)):
         raise ValueError(f"window_attn: unsupported shapes x={tuple(xw.shape)} heads={num_heads} "
                          f"bias={tuple(bias_mask.shape)} wqkv={tuple(wqkv.shape)}")
     dt = xw.dtype
-    code = _ext.dtype_code(dt)  # f32 or bf16, else raises
     xw = xw.contiguous()
     args = [t.to(dt).contiguous() for t in (wqkv, bqkv, wproj, bproj)]
     bm = bias_mask.float().contiguous()
+    if route == "tc":  # cp.async of the rows and weights, pairs of the biases
+        xw, bm = _ext.aligned16(xw), _ext.aligned16(bm)
+        args = [_ext.aligned16(a) for a in args]
     y = torch.empty_like(xw)
-    WINDOW_ATTN(xw.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(), y.data_ptr(),
-                code, m, n, c, num_heads, nw)
+    ptrs = [xw.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(), y.data_ptr()]
+    if route == "tc":
+        WINDOW_ATTN_TC(*ptrs, m, n, c, num_heads, nw)
+    else:
+        WINDOW_ATTN(*ptrs, _ext.dtype_code(dt), m, n, c, num_heads, nw)
     return y
 
 
@@ -81,7 +109,8 @@ def _forward(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads):
 
 
 class WindowAttentionFn(torch.autograd.Function):
-    """Forward: the kernel on a CUDA tensor, the plain version on a CPU one.
+    """Forward: the route's kernel on a CUDA tensor, the plain version on a
+    CPU one.
     Backward: the plain version's gradients, recomputed under autograd."""
 
     @staticmethod

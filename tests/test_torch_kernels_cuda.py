@@ -6,7 +6,10 @@ also which route ran (K10 and P1 also at full width, K10 at every conv
 family of profile_winograd's census, and two bf16 calls giving the same
 bits); the same for kernel A, whose two calls must also give the
 same bits, and whose statistics reduce holds against an f64 sum over 4096
-windows.
+windows; for K9, whose bf16 route takes the tensor cores only at heads 16
+or 32 wide, which route ran, and at full width two calls' bits; for D,
+which splits the codebook across CTAs, ragged rows and slices and exact
+ties across slices.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Where there is a card, run
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -215,6 +218,57 @@ def test_vq_nearest_ragged_rows(gen, d):
                                vq.nearest_codebook_indices_plain(z, emb), rtol=0, atol=0)
 
 
+def _vq_near_ties(z, emb, got, want):
+    """Rows where D's indices differ from the plain version's, checked to be
+    near-ties: their f64 distances within 1e-6 of the row's scale
+    (chip_smoke.py's rule).  Returns how many differ."""
+    differ = (got != want).nonzero().flatten()
+    if differ.numel():
+        zz, e64 = z[differ].double(), emb.double()
+        da = ((zz - e64[got[differ]]) ** 2).sum(1)
+        db = ((zz - e64[want[differ]]) ** 2).sum(1)
+        scale = (zz ** 2).sum(1) + torch.maximum((e64[got[differ]] ** 2).sum(1),
+                                                 (e64[want[differ]] ** 2).sum(1))
+        assert bool(((da - db).abs() <= 1e-6 * scale).all()), "indices differ beyond near-ties"
+    return differ.numel()
+
+
+@pytest.mark.parametrize("m", [1000, 4097])
+@pytest.mark.parametrize("k", [300, 8191])
+@pytest.mark.parametrize("d", [3, 8])
+def test_vq_nearest_split(gen, m, k, d):
+    """Row counts that no row block divides and codebooks that no slice
+    divides, at both codebooks' D: the plain version's indices, except at
+    near-ties; one search and one finalize a call."""
+    z = torch.randn(m, d, generator=gen, device="cuda")
+    emb = 0.5 * torch.randn(k, d, generator=gen, device="cuda")
+    before = (vq.VQ_NEAREST.launches, vq.VQ_FINALIZE.launches)
+    got = vq.nearest_codebook_indices(z, emb)
+    assert (vq.VQ_NEAREST.launches, vq.VQ_FINALIZE.launches) == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.int64 and got.shape == (m,)
+    _vq_near_ties(z, emb, got, vq.nearest_codebook_indices_plain(z, emb))
+
+
+@pytest.mark.parametrize("d", [3, 8])
+def test_vq_nearest_ties_across_slices(gen, d):
+    """A codebook whose rows repeat two or three times, half a codebook and
+    more apart (in other slices, whatever the plan): a row equal to a
+    repeated code takes its first index, though a later slice may finish
+    first; the other rows the plain version's indices, except at
+    near-ties."""
+    m, k = 4097, 8191
+    emb = torch.randn(k, d, generator=gen, device="cuda")
+    first = torch.arange(0, 2000, 7, device="cuda")
+    emb[first + 4096] = emb[first]
+    emb[first[::2] + 6144] = emb[first[::2]]
+    z = torch.randn(m, d, generator=gen, device="cuda")
+    rows = torch.arange(0, 3 * first.numel(), 3, device="cuda")
+    z[rows] = emb[first]
+    got, want = vq.nearest_codebook_indices(z, emb), vq.nearest_codebook_indices_plain(z, emb)
+    assert torch.equal(got[rows], first) and torch.equal(want[rows], first)
+    _vq_near_ties(z, emb, got, want)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,w,c", [(2, 16, 24, 4), (3, 8, 40, 6), (1, 24, 32, 192)])
 def test_shift_tokens_exact(gen, dt, b, h, w, c):
@@ -249,15 +303,19 @@ def test_gn_silu_conv3x3_ragged_tiles(gen, dt, b, c, h, w, co):
                                          (5, 49, 96, 4, 5)])
 def test_window_attention_ragged(gen, dt, m, n, c, nh, nw):
     """K9 at window counts that are no multiple of a block, 49-token
-    windows, and a per-window bias; its gradient against plain autograd."""
+    windows, and a per-window bias; its gradient against plain autograd.
+    bf16 takes the tensor-core kernel at heads 16 and 32 wide and the FMA
+    kernel at 24 (C = 96, 4 heads); f32 always the FMA kernel."""
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     x = rn(m, n, c).to(dt)
     wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
            (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
     bm = 0.2 * rn(nw, nh, n, n)
-    launches = wa.WINDOW_ATTN.launches
+    tc = dt == torch.bfloat16 and c // nh in (16, 32)
+    assert wa.window_attn_route(dt, n, c, nh) == ("tc" if tc else "fma")
+    before = _routes((wa.WINDOW_ATTN_TC, wa.WINDOW_ATTN))
     _close(wa.window_attention(x, *wts, bm, nh), wa.window_attention_plain(x, *wts, bm, nh), dt)
-    assert wa.WINDOW_ATTN.launches == launches + 1
+    assert _routes((wa.WINDOW_ATTN_TC, wa.WINDOW_ATTN)) == [before[0] + tc, before[1] + (not tc)]
     if dt == torch.float32:
         ins = [t.clone().requires_grad_() for t in (x, *wts, bm)]
         ref = [t.clone().requires_grad_() for t in (x, *wts, bm)]
@@ -266,6 +324,25 @@ def test_window_attention_ragged(gen, dt, m, n, c, nh, nw):
         wa.window_attention_plain(*ref, nh).backward(g)
         for a, b in zip(ins, ref):
             _close(a.grad, b.grad, dt)
+
+
+def test_window_attention_full_width(gen):
+    """K9's bf16 route at the profiling tool's widths, 512 windows of 64
+    tokens x 192 channels in 6 heads, with 64 bias rows (rel-pos bias plus
+    the shift mask of a 64x64 map): the tensor-core kernel once a call,
+    within the band of the plain version, and two calls' bits equal."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    m, n, c, nh, dt = 512, 64, 192, 6, torch.bfloat16
+    x = rn(m, n, c).to(dt)
+    wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+           (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+    bm = 0.02 * rn(64, nh, n, n) + torch.as_tensor(shifted_window_mask(64, 64, 8, 4),
+                                                   device="cuda")[:, None]
+    before = _routes((wa.WINDOW_ATTN_TC, wa.WINDOW_ATTN))
+    first, second = wa.window_attention(x, *wts, bm, nh), wa.window_attention(x, *wts, bm, nh)
+    assert _routes((wa.WINDOW_ATTN_TC, wa.WINDOW_ATTN)) == [before[0] + 2, before[1]]
+    _close(first, wa.window_attention_plain(x, *wts, bm, nh), dt)
+    assert torch.equal(first, second)
 
 
 def _conv_routed(fn, tc, fma, dt, variant=None):

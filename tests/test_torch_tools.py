@@ -2,16 +2,16 @@
 the CPU at tiny sizes through the plain versions: each prints its JSON
 line with the device, its results (times null: none is measured on the
 CPU) and its kernels' launch counts (zero).  Without a card, the default
---device cuda raises; profile_winograd_tilings, which builds kernels, has
-no CPU mode."""
+--device cuda raises; profile_winograd_tilings, which builds kernels, and
+profile_kernels, which only times them, have no CPU mode."""
 
 import json
 
 import pytest
 import torch
 
-from resshift_tpu_torch.tools import (profile_attn_variants, profile_conv, profile_unet,
-                                      profile_winograd, profile_winograd_tilings)
+from resshift_tpu_torch.tools import (profile_attn_variants, profile_conv, profile_kernels,
+                                      profile_unet, profile_winograd, profile_winograd_tilings)
 
 torch.set_num_threads(1)
 FAST = ["--device", "cpu", "--n-iter", "1", "--reps", "1"]
@@ -59,3 +59,24 @@ def test_tilings_probe_has_no_cpu_mode():
     it writes or compiles anything."""
     with pytest.raises(RuntimeError, match="needs the card"):
         profile_winograd_tilings.main(["--device", "cpu"])
+
+
+def test_profile_unet_f32(capsys):
+    """--dtype f32 runs the attention phases in float32 (on the card: K9's
+    FMA kernel), the same FLOPs counted."""
+    out = profile_unet.main(["--batch", "1", "--phases", "attn_kernel,attn_plain", "--dtype",
+                             "f32"] + FAST)
+    assert out["results"]["attn_kernel"]["gflops"] == pytest.approx(90.2e9 / 64 / 1e9, rel=1e-3)
+    assert set(out["launches"]) >= {"window_attn_tc", "window_attn"}
+    with pytest.raises(SystemExit):
+        profile_unet.main(["--dtype", "f16"] + FAST)
+
+
+def test_profile_kernels_needs_the_card(monkeypatch):
+    """profile_kernels has no CPU mode, and without a card its default
+    --device cuda raises."""
+    with pytest.raises(RuntimeError, match="needs the card"):
+        profile_kernels.main(["--device", "cpu"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        profile_kernels.main([])
