@@ -44,16 +44,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      `autoencoder.use_pallas: true`, so that kernel F runs in the UNet head
      and the decoder tail: launch counts derived from the config, >= 35 dB
      latent and image PSNR against the unpinned call through the plain
-     versions, and the same call unpinned, timed (and profiled);
+     versions, and the same call unpinned, timed (and profiled); F's
+     launches are counted by kernel: gn_stats steps + 1 times, the FMA
+     route in the f32 UNet head, the tensor-core route in the bf16 tail;
  10. inpaint_imagenet, one 256x256 image with a seeded rectangular mask,
      checked in the same way;
  11. `cli infer` in subprocesses: inpaint_face with --mask-path (outside the
      mask the output equals the input exactly), faceir, realsr --scale 2
      (one LQ side padding to an odd multiple of 64, which the pipeline pads
      on to a multiple of 128);
-phase 2 also holds kernel F (gn_silu_conv3x3) against its plain version at
-the UNet head's and the decoder tails' shapes, with the cuDNN composition
-timed beside it, and the kernels of the profiling entry points: K9 at
+phase 2 also holds kernel F against its plain version at the UNet head's
+and the decoder tails' shapes (its statistics pass gn_stats against the
+plain fold; its conv on the route each shape's dtype takes: f32 heads on
+the FMA kernel gn_silu_conv3x3, bf16 tails on the tensor-core kernel
+gn_silu_conv3x3_tc, each call checked for its route), timed by events and
+by each kernel's device time beside the cuDNN composition, with its bound
+and two-pass floor, and the kernels of the profiling entry points: K9 at
 (4096, 64, 192) with one bias and with 64 (shift mask), in bf16 (the
 tensor-core kernel window_attn_tc) and f32 (the FMA kernel window_attn),
 each call checked for its route, both timed by events and by the
@@ -167,12 +173,14 @@ def check(name: str, got, want, rel: float, atol: float) -> float:
 
 
 # kernels whose device time every profile reports, whether or not in its top 15:
-# A's routes and the reduce, D's search and second pass, and the work around
+# A's routes and the reduce, D's search and second pass, F's statistics and
+# fold and both of its conv routes (launched where pinned), and the work around
 # the UNet's cuDNN convs that a fused GN+SiLU+conv kernel would take (the
 # convs themselves, cuDNN's layout transposes, the GroupNorm moments)
 PROFILED = ("swin_window_attn_tc_kernel", "swin_window_attn_kernel", "stats_reduce_kernel",
-            "vq_nearest_kernel", "vq_finalize_kernel", "fprop_implicit_gemm", "nchwToNhwc",
-            "nhwcToNchw", "RowwiseMoments")
+            "vq_nearest_kernel", "vq_finalize_kernel", "gn_stats_kernel", "gn_fold_kernel",
+            "gn_silu_conv3x3_tc_kernel", "gn_silu_conv3x3_kernel", "fprop_implicit_gemm",
+            "nchwToNhwc", "nhwcToNchw", "RowwiseMoments")
 
 
 def device_ms(torch, fn, names, reps: int = 10, tries: int = 3) -> dict:
@@ -484,47 +492,85 @@ def check_wide_block(dev):
 
 
 def check_tail(dev):
-    """Phase 2, kernel F's wrapper pinned `use_pallas=True` against the plain
-    version (the GroupNorm folded the same way) at TAIL_SHAPES: f32 within
-    2e-4 of the largest value (summation order), bf16 within phase 2's
-    band; times both and the cuDNN composition (F.group_norm, F.silu,
-    F.conv2d with the bias), each from x and the GroupNorm's parameters.
-    Returns (max bf16 error, {shape name: (ms, plain ms, cuDNN ms, bound ms,
-    bound by)})."""
+    """Phase 2, kernel F pinned `use_pallas=True` at TAIL_SHAPES: its
+    statistics pass `gn_stats` against the plain `group_norm_fold` (w, b
+    within 1e-4 of their largest values), then the wrapper against the plain
+    version (the GroupNorm folded the same way), each call checked for its
+    route (the heads, f32: gn_stats and the FMA kernel; the decoder tails,
+    bf16: gn_stats and the tensor-core kernel): f32 within 2e-4 of the
+    largest value, bf16 within phase 2's band.  Times by events the wrapper,
+    gn_stats alone, the plain version and the cuDNN composition
+    (F.group_norm, F.silu, F.conv2d with the bias), each from x and the
+    GroupNorm's parameters, and by the profiler each of F's kernels' device
+    time; the bound (x read once) and the two-pass floor (x read twice, y
+    written once).  Returns ({"F": bf16 error, "F f32": f32 error, "F stats":
+    the statistics' error}, {shape name: its numbers})."""
     import torch
     import torch.nn.functional as F
 
     from resshift_tpu_torch.ops import tail
 
+    kernels = {"tc": tail.GN_SILU_CONV3X3_TC, "fma": tail.GN_SILU_CONV3X3}
     g = torch.Generator(device=dev).manual_seed(11)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
-    err, timed = 0.0, {}
+    errs, timed = {"F": 0.0, "F f32": 0.0, "F stats": 0.0}, {}
     for name, b, c, h, w, co, tag in TAIL_SHAPES:
         dt = torch.float32 if tag == "f32" else torch.bfloat16
         eps = 1e-5 if "head" in name else 1e-6
         x = (1.5 * rn(b, c, h, w) + 0.3).to(dt)
         scale, gbias = 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c)
         weight, bias = (rn(co, c, 3, 3) / (9 * c) ** 0.5).to(dt), (0.1 * rn(co)).to(dt)
+        route = tail.tail_route("cuda", dt, c, co)
+        if route != ("fma" if tag == "f32" else "tc"):
+            raise AssertionError(f"F at {name}: route {route}")
         fk = lambda: tail.gn_silu_conv3x3(x, scale, gbias, weight, bias, eps=eps,
                                           use_pallas=True)
-        fp = lambda: tail.gn_silu_conv3x3_plain(
-            x, *tail.group_norm_fold(x, scale, gbias, eps=eps), weight, bias)
+        fs = lambda: tail.gn_stats(x, scale, gbias, eps=eps)
+        fold = lambda: tail.group_norm_fold(x, scale, gbias, eps=eps)
+        fp = lambda: tail.gn_silu_conv3x3_plain(x, *fold(), weight, bias)
         lib = lambda: F.conv2d(F.silu(F.group_norm(x, 32, scale.to(dt), gbias.to(dt), eps)),
                                weight, bias, padding=1)
+        before = (tail.GN_STATS.launches, kernels[route].launches)
+        stats = fs()
+        got = fk()
+        if (tail.GN_STATS.launches, kernels[route].launches) != (before[0] + 2, before[1] + 1):
+            raise AssertionError(f"F at {name}: gn_stats and {kernels[route].name} must "
+                                 f"launch once a call")
+        for got_t, want_t in zip(stats, fold()):
+            errs["F stats"] = max(errs["F stats"], check(
+                f"gn_stats {tag} {name} {(b, c, h, w)}", got_t, want_t, 1e-4, 0.0))
         rel, atol = (2e-4, 1e-5) if tag == "f32" else (2 ** -6, 1e-3)
-        e = check(f"F {tag} {name} {(b, c, h, w)} -> {co}", fk(), fp(), rel, atol)
-        if tag == "bf16":
-            err = max(err, e)
-        # x read once, y written once, the taps and the GroupNorm's (C,)
+        key = "F f32" if tag == "f32" else "F"
+        errs[key] = max(errs[key], check(f"F {tag} {name} {(b, c, h, w)} -> {co} ({route})",
+                                         got, fp(), rel, atol))
+        # x read once, y written once, the taps, the GroupNorm's (C,)
         # parameters; the conv's 9 * co multiply-adds per input element and
         # about 9 operations for its statistics, affine and SiLU
-        nbytes = b * (c + co) * h * w * x.element_size() + c * 9 * co * x.element_size() + 8 * c
+        es = x.element_size()
+        x_bytes, y_bytes = b * c * h * w * es, b * co * h * w * es
+        nbytes = x_bytes + y_bytes + c * 9 * co * es + 8 * c
         bms, bby = bound(nbytes, b * h * w * c * (18 * co + 9), tag)
-        t = (cuda_ms(torch, fk), cuda_ms(torch, fp), cuda_ms(torch, lib))
-        timed[name] = t + (bms, bby)
-        print(f"  F {name}: ms {t[0]:.4f}, plain ms {t[1]:.4f}, cuDNN composition ms "
-              f"{t[2]:.4f}, bound ms {bms:.4f} ({bby})", flush=True)
-    return err, timed
+        floor_ms = (2 * x_bytes + y_bytes) / PEAK_BYTES * 1e3
+        s_ms, s_by = bound(x_bytes + 8 * c + 8 * b * c, 3 * b * c * h * w, tag)
+        names = ("gn_stats_kernel", "gn_fold_kernel", kernels[route].name + "_kernel")
+        names += ("Memset",) if route == "fma" else ()  # the FMA route's arrival counters
+        dev_ms = device_ms(torch, fk, names)
+        # F and the cuDNN composition in turns (F, cuDNN, cuDNN, F): at the
+        # heads both times are the host's enqueues
+        f_ms, lib_ms = (cuda_ms(torch, fk), cuda_ms(torch, lib))
+        lib_ms, f_ms = (lib_ms + cuda_ms(torch, lib)) / 2, (f_ms + cuda_ms(torch, fk)) / 2
+        t = {"route": route, "ms": f_ms, "plain_ms": cuda_ms(torch, fp),
+             "library_ms": lib_ms, "bound_ms": bms, "bound_by": bby,
+             "two_pass_floor_ms": floor_ms, "stats_ms": cuda_ms(torch, fs),
+             "stats_plain_ms": cuda_ms(torch, fold), "stats_bound_ms": s_ms,
+             "stats_bound_by": s_by, "device_ms_by_kernel": dev_ms}
+        timed[name] = t
+        print(f"  F {name} ({route}): ms {t['ms']:.4f}, plain ms {t['plain_ms']:.4f}, cuDNN "
+              f"composition ms {t['library_ms']:.4f}, bound ms {bms:.4f} ({bby}), two-pass "
+              f"floor ms {floor_ms:.4f}; gn_stats ms {t['stats_ms']:.4f} (plain fold "
+              f"{t['stats_plain_ms']:.4f}, bound {s_ms:.4f}); device ms "
+              f"{ {k: ms_str(v) for k, v in dev_ms.items()} }", flush=True)
+    return errs, timed
 
 
 def check_window_attention(dev):
@@ -781,8 +827,10 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
     window; a shifted block on a map wider than 1024 tokens per window-row
     (the JAX package's dispatch) launches E twice around unshifted A and B,
     else the shift-absorbing A and B.  C runs in the encoder and decoder
-    middle, D once; F once per step in the UNet head and once in the
-    decoder tail where both are pinned (`tail_pinned`)."""
+    middle, D once; where both are pinned (`tail_pinned`), kernel F once per
+    step in the UNet head and once in the decoder tail, each a `gn_stats`
+    launch and the conv on the route its dtype and width take (the head in
+    f32: the FMA kernel "F"; the tail in bf16: the tensor cores, "F tc")."""
     m = cfg["model"]
     win, depth, size = m["window_size"], m["swin_depth"], m["image_size"]
     mult, attn = m["channel_mult"], m["attention_resolutions"]
@@ -807,7 +855,19 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
             else:
                 n["E"] += 2 * shifted
     want = {k: v * steps for k, v in n.items()}
-    want.update({"C": 2, "D": 1, "D finalize": 1, "F": steps + 1 if tail_pinned else 0})
+    want.update({"C": 2, "D": 1, "D finalize": 1, "F": 0, "F tc": 0, "F stats": 0})
+    if tail_pinned:
+        import torch
+
+        from resshift_tpu_torch.ops import tail
+
+        ae = cfg["autoencoder"]["ddconfig"]
+        head = (torch.float32, m["model_channels"] * mult[0], m["out_channels"], steps)
+        dec_tail = (torch.bfloat16, ae["ch"] * ae["ch_mult"][0], ae["out_ch"], 1)
+        for dt, c, co, n_calls in (head, dec_tail):
+            route = tail.tail_route("cuda", dt, c, co)
+            want["F tc" if route == "tc" else "F"] += n_calls
+            want["F stats"] += n_calls
     want.update({"A f32": 0, "B f32": 0, "C f32": 0})  # bf16: no launch of the FMA routes
     want.update({"K9": 0, "K9 f32": 0, "K10": 0, "K10 f32": 0, "P1": 0,
                  "P1 f32": 0})  # off the sampler path
@@ -824,6 +884,43 @@ def read_launches(kernels: dict, sb) -> dict:
     return got
 
 
+def tail_rows(launches: dict, errs: dict, tails: dict) -> list[dict]:
+    """The `kernels` rows of F: its two conv routes and its statistics pass,
+    launched in the pinned faceir call of phase 9; the tensor-core route
+    timed at the f8 tail, the FMA route at faceir's head, gn_stats at the f8
+    tail; every shape the route takes under `by_shape`, with the two-pass
+    floor and the device time of each of F's kernels."""
+    out = []
+    f_repl = "resshift_tpu/ops/tail_pallas.py:173 (K8)"
+    conv_keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "two_pass_floor_ms",
+                 "device_ms_by_kernel")
+    stats_keys = {"stats_ms": "ms", "stats_plain_ms": "plain_ms", "stats_bound_ms": "bound_ms",
+                  "stats_bound_by": "bound_by"}
+    for key, name, src, shape, route in (
+            ("F tc", "gn_silu_conv3x3_tc", "resshift_tpu_torch/csrc/gn_silu_conv3x3_tc.cu",
+             "f8 tail", "tc"),
+            ("F", "gn_silu_conv3x3", "resshift_tpu_torch/csrc/gn_silu_conv3x3.cu", "faceir head",
+             "fma"),
+            ("F stats", "gn_stats", "resshift_tpu_torch/csrc/gn_silu_conv3x3.cu", "f8 tail",
+             None)):
+        if route is None:  # the statistics pass, at every shape
+            pick = lambda t: {new: t[old] for old, new in stats_keys.items()}
+            row = {"replaces": f"{f_repl} with the GroupNorm fold before it "
+                               f"(resshift_tpu/models/layers.py:29 group_norm_fold)",
+                   "library_ms": None, "dtype": "bf16 and f32", "max_abs_err": errs[key]}
+        else:
+            pick = lambda t: {k: t[k] for k in conv_keys}
+            row = {"replaces": f_repl, "dtype": "bf16" if route == "tc" else "f32",
+                   "max_abs_err": errs["F" if route == "tc" else "F f32"]}
+        out.append({"name": name, "route": "cuda", "source": src,
+                     "launches": launches["9"][key], **row, **pick(tails[shape]),
+                     "shape": shape,
+                     "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()},
+                     "by_shape": {sh: pick(t) for sh, t in tails.items()
+                                  if route in (None, t["route"])}})
+    return out
+
+
 def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     """The `kernels` report: each kernel's launches in its main path (the
     whole photo of phase 6 for A-E, the face of phase 9 for F, the tools of
@@ -831,8 +928,9 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     f32 call for the FMA routes of A, B and C; every phase under
     `launches_by_phase`), its error and times from phase 2 (bf16, but f32
     for the FMA routes), and its bound at the timed shapes (bytes: each
-    input read once, each output written once); F at the f8 decoder tail,
-    K10 at unet res@64, each with every timed shape under `by_shape`, K10
+    input read once, each output written once); F's tensor-core route and
+    gn_stats at the f8 decoder tail, its FMA route at faceir's head, K10 at
+    unet res@64, each with every timed shape under `by_shape`, K10
     and P1 with their kernels' profiler device time (and K10 its U
     transform's time); P2 in its f32 mode, every mode under `by_mode`."""
     nh, n, c, hidden, bsz = NH, N, C, HIDDEN, BSZ
@@ -863,19 +961,15 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
         "E": ("shift_tokens", "resshift_tpu_torch/csrc/shift_tokens.cu",
               "resshift_tpu/ops/shift_pallas.py:115 (K7)", bound(e_bytes, 0, "bf16")),
     }
-    tails = timed["F"]
-    meta["F"] = ("gn_silu_conv3x3", "resshift_tpu_torch/csrc/gn_silu_conv3x3.cu",
-                 "resshift_tpu/ops/tail_pallas.py:173 (K8)", tails["f8 tail"][3:5])
     rows = []
     for key, (name, src, repl, (b_ms, b_by)) in meta.items():
-        tk = tails["f8 tail"] if key == "F" else timed[key]
+        tk = timed[key]
         rows.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
-                     "launches": launches["9" if key == "F" else "6"][key],
-                     "max_abs_err": errs[key], "ms": tk[0], "plain_ms": tk[1], "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": tk[2] if len(tk) > 2 else None,
+                     "launches": launches["6"][key], "max_abs_err": errs[key], "ms": tk[0],
+                     "plain_ms": tk[1], "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": tk[2] if len(tk) > 2 else None,
                      "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}})
-    rows[-1]["by_shape"] = {shape: dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
-                                             "bound_by"), t)) for shape, t in tails.items()}
+    rows += tail_rows(launches, errs, timed["F"])
     # D: no library call; its second pass (vq_finalize) counted apart, each
     # shape's time, bound and device time by kernel
     d_row = rows[3]
@@ -999,7 +1093,8 @@ def main() -> int:
     errs, timed = check_kernels(dev)
     timed["E"], errs["E"] = check_shift(dev), 0.0
     timed["wide block"] = check_wide_block(dev)
-    errs["F"], timed["F"] = check_tail(dev)
+    f_errs, timed["F"] = check_tail(dev)
+    errs.update(f_errs)
     k9_errs, k9_timed = check_window_attention(dev)
     errs.update(k9_errs)
     timed.update(k9_timed)
@@ -1034,7 +1129,8 @@ def main() -> int:
                    "B": sb.SWIN_MLP_TC, "B f32": sb.SWIN_MLP,
                    "C": fa.FLASH_ATTN_1H_TC, "C f32": fa.FLASH_ATTN_1H, "D": vq.VQ_NEAREST,
                    "D finalize": vq.VQ_FINALIZE, "E": shift_ops.SHIFT_TOKENS,
-                   "F": tail.GN_SILU_CONV3X3, "K9": wa.WINDOW_ATTN_TC, "K9 f32": wa.WINDOW_ATTN,
+                   "F": tail.GN_SILU_CONV3X3, "F tc": tail.GN_SILU_CONV3X3_TC,
+                   "F stats": tail.GN_STATS, "K9": wa.WINDOW_ATTN_TC, "K9 f32": wa.WINDOW_ATTN,
                    "K10": wg.WINOGRAD_CONV3X3_TC, "K10 f32": wg.WINOGRAD_CONV3X3,
                    "P1": cv.CONV3X3_TC, "P1 f32": cv.CONV3X3}
 
@@ -1106,6 +1202,7 @@ def main() -> int:
     launches = {"3": read_launches(all_kernels, sb)}
     print(f"  launches in one sample call: {launches['3']}", flush=True)
     want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "D finalize": 1, "E": 0, "F": 0,
+                     "F tc": 0, "F stats": 0,
                      "fused shift": 90, "A f32": 0, "B f32": 0, "C f32": 0, "K9": 0, "K9 f32": 0,
                      "K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0}
     if launches["3"] != want_launches:

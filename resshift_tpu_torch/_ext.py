@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "aligned16", "build_all", "dtype_code", "P", "I"]
+__all__ = ["Kernel", "aligned16", "build_all", "dtype_code", "query", "P", "I", "F"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -30,12 +30,13 @@ _BUILD = _PKG / "_build"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 _SOURCES = ("swin_window_attn", "swin_window_attn_tc", "swin_mlp", "swin_mlp_tc", "flash_attn_1h",
-            "flash_attn_1h_tc", "vq_nearest", "shift_tokens", "gn_silu_conv3x3", "window_attn",
-            "window_attn_tc", "winograd_conv3x3", "winograd_conv3x3_tc", "conv3x3", "conv3x3_tc",
-            "attn_variants")
+            "flash_attn_1h_tc", "vq_nearest", "shift_tokens", "gn_silu_conv3x3",
+            "gn_silu_conv3x3_tc", "window_attn", "window_attn_tc", "winograd_conv3x3",
+            "winograd_conv3x3_tc", "conv3x3", "conv3x3_tc", "attn_variants")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
+F = ctypes.c_float
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -91,6 +92,15 @@ def _library(name: str) -> ctypes.CDLL:
             for n, p in paths.items():
                 _libs[n] = ctypes.CDLL(str(p))
         return _libs[name]
+
+
+def query(lib: str, name: str, *args: int) -> int:
+    """The value of C function `name` of library `lib` that launches nothing
+    (a plan's workspace size): int arguments, a 64-bit int result."""
+    fn = getattr(_library(lib), name)
+    fn.argtypes = [I] * len(args)
+    fn.restype = ctypes.c_longlong
+    return int(fn(*args))
 
 
 def dtype_code(dt: torch.dtype) -> int:

@@ -1,5 +1,5 @@
-"""Times kernels A, K9 and D at the shapes the port runs them, by CUDA events
-around the wrapper and by the profiler's device time of one call.
+"""Times kernels A, K9, D, E and F at the shapes the port runs them, by CUDA
+events around the wrapper and by the profiler's device time of one call.
 
     python -m resshift_tpu_torch.tools.profile_kernels [--n-iter 20] [--reps 3]
 
@@ -9,8 +9,13 @@ A: `swin_block.norm_attn_residual_stats`, bf16, (8, 4096, 192), 6 heads
 (profile_unet's `attn_kernel`).  D: `vq.nearest_codebook_indices`, f32, at
 the decodes' shapes: 32768 x 8192 x 3 (the f4 tile batch), 4096 x 4096 x 8
 (one f8 face), 49152 x 8192 x 3 (a 176x250 photo's 192x256 f4 latent),
-262144 x 8192 x 3 (a 512x512 photo's).  The
-device time is the sum of every device event of a call (kernels and
+262144 x 8192 x 3 (a 512x512 photo's).  E: `shift.shift_tokens`, bf16,
+(1, 49152, 192) and (1, 262144, 192) (the whole-photo latents 192x256 and
+512x512, window 8, shift 4).  F: `tail.gn_silu_conv3x3` pinned
+`use_pallas=True` at `TAIL_SHAPES` (the UNet head at a tile batch of 8 and
+at faceir's one face, f32; the f4 and f8 decoder tails, bf16), each on the
+route its dtype takes, its statistics pass and its conv kernel apart in
+the device time by name.  The device time is the sum of every device event of a call (kernels and
 memsets), with the events by name beside it.  The tool uses only the
 wrappers' public functions, so the same file times a checkout of an
 earlier commit: copy it into that checkout's `resshift_tpu_torch/tools/`
@@ -24,15 +29,23 @@ import argparse
 import torch
 
 from . import add_common_args, emit, pick_device, time_ms
+from ..ops import shift
 from ..ops import swin_block as sb
+from ..ops import tail
 from ..ops import vq
 from ..ops import window_attention as wa
 
-__all__ = ["VQ_SHAPES", "main"]
+__all__ = ["VQ_SHAPES", "E_LATENTS", "TAIL_SHAPES", "main"]
 
 NH, N, C = 6, 64, 192
 VQ_SHAPES = {"f4 tiles": (32768, 8192, 3), "f8 face": (4096, 4096, 8),
              "f4 176x250": (49152, 8192, 3), "f4 512x512": (262144, 8192, 3)}
+E_LATENTS = [(192, 256), (512, 512)]
+# (name, B, C, H, W, co, dtype), as chip_smoke.py's
+TAIL_SHAPES = [("UNet head", 8, 160, 64, 64, 3, torch.float32),
+               ("faceir head", 1, 160, 64, 64, 8, torch.float32),
+               ("f4 tail", 8, 128, 256, 256, 3, torch.bfloat16),
+               ("f8 tail", 1, 64, 512, 512, 3, torch.bfloat16)]
 
 
 def device_ms(fn, reps: int = 5) -> dict:
@@ -71,6 +84,17 @@ def _cases(dev: torch.device) -> dict:
         z, emb = rn(m, d), 0.5 * rn(k, d)
         cases[f"D {label} ({m} x {k} x {d})"] = (lambda z=z, emb=emb:
                                                  vq.nearest_codebook_indices(z, emb))
+    for h, w in E_LATENTS:
+        xe = rn(1, h * w, C).to(bf)
+        cases[f"E (1, {h * w}, {C}) bf16"] = (lambda xe=xe, h=h, w=w:
+                                               shift.shift_tokens(xe, h, w, 8, 4))
+    for name, b, c, h, w, co, dt in TAIL_SHAPES:
+        eps = 1e-5 if "head" in name else 1e-6
+        args = ((1.5 * rn(b, c, h, w) + 0.3).to(dt), 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c),
+                (rn(co, c, 3, 3) / (9 * c) ** 0.5).to(dt), (0.1 * rn(co)).to(dt))
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        cases[f"F {name} {(b, c, h, w)} -> {co} {tag}"] = (
+            lambda args=args, eps=eps: tail.gn_silu_conv3x3(*args, eps=eps, use_pallas=True))
     return cases
 
 
@@ -84,7 +108,10 @@ def main(argv=None) -> dict:
                            "mode")
     kernels = [k for k in (getattr(sb, "SWIN_WINDOW_ATTN_TC", None),
                            getattr(wa, "WINDOW_ATTN_TC", None), wa.WINDOW_ATTN, vq.VQ_NEAREST,
-                           getattr(vq, "VQ_FINALIZE", None)) if k is not None]
+                           getattr(vq, "VQ_FINALIZE", None), shift.SHIFT_TOKENS,
+                           getattr(tail, "GN_STATS", None),
+                           getattr(tail, "GN_SILU_CONV3X3_TC", None), tail.GN_SILU_CONV3X3)
+               if k is not None]
     for k in kernels:
         k.reset()
     results = {}

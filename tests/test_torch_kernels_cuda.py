@@ -9,7 +9,10 @@ same bits, and whose statistics reduce holds against an f64 sum over 4096
 windows; for K9, whose bf16 route takes the tensor cores only at heads 16
 or 32 wide, which route ran, and at full width two calls' bits; for D,
 which splits the codebook across CTAs, ragged rows and slices and exact
-ties across slices.
+ties across slices; for F, its statistics pass `gn_stats` against the plain
+fold, and both conv routes (bf16 at C % 16 == 0 on the tensor cores, else
+the FMA kernel with its channels split across CTAs), which route ran, two
+calls' bits, and how many bf16 elements differ from the plain version.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Where there is a card, run
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -281,21 +284,90 @@ def test_shift_tokens_exact(gen, dt, b, h, w, c):
                                shift.shift_tokens_plain(t, h, w, 8, 4, inverse))
 
 
+F_KERNELS = (tail.GN_SILU_CONV3X3_TC, tail.GN_SILU_CONV3X3, tail.GN_STATS)
+
+
+def _tail_args(gen, dt, b, c, h, w, co):
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = (1.5 * rn(b, c, h, w) + 0.3).to(dt)
+    return (x, 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c), rn(co, c, 3, 3) / (9 * c) ** 0.5,
+            0.1 * rn(co))
+
+
+def _groups(c):
+    """32 GroupNorm groups, or 8 where C is not a multiple of 32 (C = 40)."""
+    return 32 if c % 32 == 0 or c < 32 else 8
+
+
+def _tail_pinned(args, dt):
+    """Kernel F pinned: gn_stats once, then the conv of the route tail_route
+    picks once; returns the output."""
+    c, co = args[0].shape[1], args[3].shape[0]
+    route = tail.tail_route("cuda", dt, c, co)
+    before = _routes(F_KERNELS)
+    got = tail.gn_silu_conv3x3(*args, num_groups=_groups(c), eps=1e-6, use_pallas=True)
+    assert _routes(F_KERNELS) == [before[0] + (route == "tc"), before[1] + (route == "fma"),
+                                  before[2] + 1], route
+    assert got.dtype == dt
+    return got
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,c,h,w,co", [(2, 160, 20, 36, 3), (1, 64, 33, 70, 8),
                                         (3, 24, 16, 32, 5), (1, 8, 5, 7, 1)])
 def test_gn_silu_conv3x3_ragged_tiles(gen, dt, b, c, h, w, co):
-    """Kernel F on maps that are not whole 16 x 32 tiles, channel counts
-    that are not whole chunks of 16, and every co padding; a non-zero GN
-    bias, so that a zero border of the input would show."""
-    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
-    x = (1.5 * rn(b, c, h, w) + 0.3).to(dt)
-    args = (x, 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c), rn(co, c, 3, 3) / (9 * c) ** 0.5, 0.1 * rn(co))
-    n = tail.GN_SILU_CONV3X3.launches
-    got = tail.gn_silu_conv3x3(*args, eps=1e-6, use_pallas=True)
-    assert tail.GN_SILU_CONV3X3.launches == n + 1 and got.dtype == dt
+    """Kernel F on maps that are not whole tiles, channel counts that are not
+    whole chunks, and every co padding; a non-zero GN bias, so that a zero
+    border of the input would show.  The route is the one tail_route picks
+    (bf16 at C % 16 == 0 on the tensor cores, else the FMA kernel)."""
+    args = _tail_args(gen, dt, b, c, h, w, co)
+    got = _tail_pinned(args, dt)
+    n = _routes(F_KERNELS)
     _close(got, tail.gn_silu_conv3x3(*args, eps=1e-6), dt)  # unpinned: plain, no launch
-    assert tail.GN_SILU_CONV3X3.launches == n + 1
+    assert _routes(F_KERNELS) == n
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,co", [(1, 24, 17, 70, 1), (2, 40, 20, 36, 2),
+                                        (1, 64, 33, 70, 8), (2, 160, 18, 65, 5),
+                                        (1, 160, 64, 64, 8), (3, 64, 16, 64, 3),
+                                        (2, 128, 40, 136, 4), (1, 96, 7, 200, 6)])
+def test_gn_silu_conv3x3_routes(gen, dt, b, c, h, w, co):
+    """Both routes at ragged shapes (C 24, 40, 64, 96, 128, 160; co 1-8; H and W
+    not whole tiles, W % 8 != 0 on the tensor cores' element path): f32
+    within 2e-4 and bf16 within the band of the plain version, two calls'
+    bits equal (the fixed-order combines), and in bf16 few elements differ
+    from the plain version (the conv's f32 sums in another order)."""
+    args = _tail_args(gen, dt, b, c, h, w, co)
+    got = _tail_pinned(args, dt)
+    want = tail.gn_silu_conv3x3(*args, num_groups=_groups(c), eps=1e-6)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = 2e-4 if dt == torch.float32 else TOL[dt]
+    assert err <= 1e-5 + rel * want.float().abs().max().item(), err
+    assert torch.equal(got, _tail_pinned(args, dt))
+    if dt == torch.bfloat16:
+        differ = (got != want).float().mean().item()
+        print(f"bf16 {tuple(args[0].shape)} -> {co}: {differ:.4%} of the elements differ")
+        assert differ <= 0.02, differ
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 5, 7), (3, 96, 33, 70), (8, 160, 64, 64),
+                                   (1, 32, 128, 128), (1, 64, 512, 512)])
+def test_gn_stats_matches_the_fold(gen, dt, shape):
+    """gn_stats (the split statistics, folded on the card) against
+    group_norm_fold, one launch a call, the same bits in two calls."""
+    b, c, h, w = shape
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x, scale, gbias = (1.5 * rn(*shape) + 0.3).to(dt), 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c)
+    n = tail.GN_STATS.launches
+    got = tail.gn_stats(x, scale, gbias, eps=1e-6)
+    assert tail.GN_STATS.launches == n + 1
+    want = tail.group_norm_fold(x, scale, gbias, eps=1e-6)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=0)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-4, atol=1e-5)
+    again = tail.gn_stats(x, scale, gbias, eps=1e-6)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
