@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
   1. print the card and its power limit; build every CUDA kernel from
      resshift_tpu_torch/csrc with nvcc (into the ignored _build/), and
-     print each kernel's registers and spills;
+     print each kernel's registers and spills and each source's build
+     seconds;
   2. hold each kernel (A swin_window_attn, B swin_mlp, C flash_attn_1h,
      D vq_nearest, E shift_tokens) against its plain PyTorch version at the
      main paths' shapes, in bf16 and f32, and time both (D at its three
@@ -71,14 +72,17 @@ and P1 in both routes (bf16: the tensor-core kernels winograd_conv3x3_tc
 and conv3x3_tc; f32: the FMA kernels), each call checked for its route,
 timed by events and by the profiler's device time, beside F.conv2d in the
 same dtype (with the bias for K10, without for P1) and K10's U transform;
-P2 attn_variants, all five softmaxes, at (8, 4096, 192);
+P2, all five softmaxes, at (8, 4096, 192), in bf16 (the tensor-core kernel
+attn_variants_tc) and f32 (the FMA kernel attn_variants), each call checked
+for its route, each mode timed by events and by the profiler's device time;
  12. the four tools `python -m resshift_tpu_torch.tools.<tool>` in
      subprocesses (profile_unet, profile_winograd on all nine conv families
      of its census, profile_conv, profile_attn_variants; profile_unet's K9
-     phase, profile_winograd and profile_conv once more with --dtype f32),
-     each at its full width with few iterations: each exits 0, launches its
-     kernels and, for K9, K10 and P1, not the other dtype's route (their
-     counts are the tools' own, read from the JSON line each prints);
+     phase, profile_winograd, profile_conv and profile_attn_variants once
+     more with --dtype f32), each at its full width with few iterations:
+     each exits 0, launches its kernels and, for K9, K10, P1 and P2, not the
+     other dtype's route (their counts are the tools' own, read from the
+     JSON line each prints);
 then print the `kernels` JSON line and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
@@ -113,6 +117,7 @@ VQ_SHAPES = [("D", 8 * 64 * 64, 8192, 3), ("D f8", 64 * 64, 4096, 8),
 # the profiling entry points' kernels: K9 at profile_unet's attention phase
 # (64 tiles x 64 windows), K10 at two of profile_winograd's SHAPES and P1 at
 # profile_conv's shape with the batch cut to 8, P2 at (8, 4096, 192)
+# (profile_attn_variants' width with the batch cut to 8)
 K9_WINDOWS = 4096
 K10_SHAPES = [("unet res@64", 8, 64, 160, 160), ("dec up0@256 256->128", 8, 256, 256, 128)]
 K10_CENSUS_BATCH = 2  # K10's bf16 route at every conv family of profile_winograd's SHAPES
@@ -120,7 +125,8 @@ P1_SHAPE = (8, 64, 64, 160)
 P1_ROWS = (1, 4)  # P1's rows per CTA: checked in phase 2, swept by profile_conv in phase 12
 # phase 12: each tool with its arguments, the kernels it must launch and those
 # it must not (K9, K10 and P1 take their tensor-core routes in bf16, their
-# FMA routes in f32); profile_winograd covers all nine conv families in bf16
+# FMA routes in f32, and so do A and P2 in profile_attn_variants);
+# profile_winograd covers all nine conv families in bf16
 TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"],
               ["window_attn_tc", "swin_window_attn_tc"], ["window_attn"]),
              ("profile_unet", ["--phases", "attn_kernel", "--dtype", "f32"], ["window_attn"],
@@ -131,13 +137,16 @@ TOOL_RUNS = [("profile_unet", ["--phases", "attn_kernel,attn_plain,swin64"],
              ("profile_conv", ["--rows", "1,2,4"], ["conv3x3_tc"], ["conv3x3"]),
              ("profile_conv", ["--rows", ",".join(map(str, P1_ROWS)), "--dtype", "f32"],
               ["conv3x3"], ["conv3x3_tc"]),
-             ("profile_attn_variants", [], ["swin_window_attn_tc", "attn_variants"], [])]
+             ("profile_attn_variants", [], ["swin_window_attn_tc", "attn_variants_tc"],
+              ["attn_variants"]),
+             ("profile_attn_variants", ["--dtype", "f32"], ["swin_window_attn", "attn_variants"],
+              ["attn_variants_tc"])]
 # the conv tools' error against F.conv2d in f32, relative to the largest
 # output: phase 2's bands
 TOOL_BAND = {"bf16": 2 ** -6, "f32": 1e-4}
 PROBE_KERNELS = {"K9": "window_attn_tc", "K9 f32": "window_attn", "K10": "winograd_conv3x3_tc",
                  "K10 f32": "winograd_conv3x3", "P1": "conv3x3_tc", "P1 f32": "conv3x3",
-                 "P2": "attn_variants"}
+                 "P2": "attn_variants_tc", "P2 f32": "attn_variants"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at a 700 W power limit)
 PEAK_BYTES = 3.35e12
@@ -738,11 +747,14 @@ def check_conv_probes(dev):
 
 
 def check_attn_variants(dev):
-    """Phase 2, P2 at (8, 4096, 192), 6 heads, each softmax mode against
-    its plain version in bf16 and f32; in f32 the f32 mode against kernel
-    A's y too (they differ only where the folded shift of 30 rounds).
-    Returns (max bf16 error, {mode: (ms, plain ms, bound ms, bound by)})
-    timed in bf16."""
+    """Phase 2, probe P2 at (8, 4096, 192), 6 heads, each softmax mode
+    against its plain version, in bf16 (the tensor-core kernel
+    attn_variants_tc) and f32 (the FMA kernel attn_variants), each call
+    checked for its route; in f32 the f32 mode against kernel A's y too
+    (they differ only where the folded shift of 30 rounds).  Each route and
+    mode is timed by events and by the profiler's device time of its kernel.
+    Returns ({"P2": max bf16 error, "P2 f32": max f32 error}, {key: {mode:
+    (ms, plain ms, bound ms, bound by, {"kernel_device_ms": ...})}})."""
     import torch
 
     from resshift_tpu_torch.ops import attn_variants as av, swin_block as sb
@@ -751,29 +763,38 @@ def check_attn_variants(dev):
     rn = lambda *s: torch.randn(*s, generator=g, device=dev)
     bsz, t, c, nh, n = BSZ, 4096, C, NH, N
     tol = {torch.bfloat16: (2 ** -6, 1e-3), torch.float32: (1e-4, 1e-5)}
-    nbytes = 2 * bsz * t * c * 2 + (4 * c * c + 4 * c) * 2 + 2 * bsz * c * 4 + nh * n * n * 4
     ops = bsz * t // n * (2 * n * c * 3 * c + 4 * n * n * c + 2 * n * c * c)
-    err, timed = 0.0, {}
+    errs, timed = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         tag = "bf16" if dt == torch.bfloat16 else "f32"
+        key, kname = ("P2", "attn_variants_tc_kernel") if tag == "bf16" else (
+            "P2 f32", "attn_variant_kernel")
         x = rn(bsz, t, c).to(dt)
         wa, ba = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c))
         wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
                (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
         args = (x, wa, ba, *wts, 0.02 * rn(1, nh, n, n), nh, n)
+        isz = x.element_size()
+        nbytes = (2 * bsz * t * c * isz + (4 * c * c + 4 * c) * isz + 2 * bsz * c * 4
+                  + nh * n * n * 4)
+        errs[key], timed[key] = 0.0, {}
         for sm in av.SOFTMAX_MODES:
             fk = lambda: av.attn_variant(*args, sm)
             fp = lambda: av.attn_variant_plain(*args, sm)
-            got = fk()
-            e = check(f"P2 {tag} {sm} ({bsz}, {t}, {c})", got, fp(), *tol[dt])
-            if dt == torch.bfloat16:
-                err = max(err, e)
-                timed[sm] = (cuda_ms(torch, fk), cuda_ms(torch, fp)) + bound(nbytes, ops, "bf16")
-                print(f"  P2 {sm} ms {timed[sm][0]:.4f}, plain ms {timed[sm][1]:.4f}", flush=True)
-            elif sm == "f32":
+            got = routed(torch, fk, av.ATTN_VARIANTS_TC, av.ATTN_VARIANTS, dt)
+            errs[key] = max(errs[key], check(f"{key} {sm} ({bsz}, {t}, {c})", got, fp(),
+                                             *tol[dt]))
+            if sm == "f32" and dt == torch.float32:
                 check("P2 f32 f32-mode vs kernel A's y", got,
                       sb.norm_attn_residual_stats(*args)[0], *tol[dt])
-    return err, timed
+            del got
+            extra = {"kernel_device_ms": device_ms(torch, fk, (kname,))[kname]}
+            tk = (cuda_ms(torch, fk), cuda_ms(torch, fp)) + bound(nbytes, ops, tag) + (extra,)
+            timed[key][sm] = tk
+            print(f"  {key} {sm} ms {tk[0]:.4f} (kernel device ms "
+                  f"{ms_str(extra['kernel_device_ms'])}), plain ms {tk[1]:.4f}, bound ms "
+                  f"{tk[2]:.4f} ({tk[3]})", flush=True)
+    return errs, timed
 
 
 def run_tools(root: Path) -> dict:
@@ -869,8 +890,8 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
             want["F tc" if route == "tc" else "F"] += n_calls
             want["F stats"] += n_calls
     want.update({"A f32": 0, "B f32": 0, "C f32": 0})  # bf16: no launch of the FMA routes
-    want.update({"K9": 0, "K9 f32": 0, "K10": 0, "K10 f32": 0, "P1": 0,
-                 "P1 f32": 0})  # off the sampler path
+    want.update({"K9": 0, "K9 f32": 0, "K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0, "P2": 0,
+                 "P2 f32": 0})  # off the sampler path
     return want
 
 
@@ -932,7 +953,8 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     gn_stats at the f8 decoder tail, its FMA route at faceir's head, K10 at
     unet res@64, each with every timed shape under `by_shape`, K10
     and P1 with their kernels' profiler device time (and K10 its U
-    transform's time); P2 in its f32 mode, every mode under `by_mode`."""
+    transform's time); P2 in both routes in its f32 mode, every mode under
+    `by_mode`."""
     nh, n, c, hidden, bsz = NH, N, C, HIDDEN, BSZ
     s2 = 2  # bf16 bytes
     t, nw = 4096, 4096 // n
@@ -989,8 +1011,10 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     p1_repl = "tools/profile_conv_pallas.py:78 (P1, conv3x3_pallas :69)"
     k10 = {key: {label: timed[f"{key} {label}"] for label, *_ in K10_SHAPES}
            for key in ("K10", "K10 f32")}
-    p2 = timed["P2"]
     csrc = "resshift_tpu_torch/csrc/"
+    p2_repl = "tools/profile_attn_variants.py:106 (P2, call_variant :99)"
+    # P2's row: its f32 mode (kernel A's softmax), every mode under by_mode
+    p2 = {key: timed[key]["f32"][:2] + (None,) + timed[key]["f32"][2:] for key in ("P2", "P2 f32")}
     k9_repl = "resshift_tpu/ops/swin_attention_pallas.py:197 (K9, _forward_pallas :158)"
     probes = {
         "K9": (csrc + "window_attn_tc.cu", k9_repl, errs["K9"], timed["K9"]),
@@ -1003,9 +1027,8 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
                     k10["K10 f32"][K10_SHAPES[0][0]]),
         "P1": (csrc + "conv3x3_tc.cu", p1_repl, errs["P1"], timed["P1"]),
         "P1 f32": (csrc + "conv3x3.cu", p1_repl, errs["P1 f32"], timed["P1 f32"]),
-        "P2": (csrc + "attn_variants.cu",
-               "tools/profile_attn_variants.py:106 (P2, call_variant :99)", errs["P2"],
-               p2["f32"][:2] + (None,) + p2["f32"][2:]),
+        "P2": (csrc + "attn_variants_tc.cu", p2_repl, errs["P2"], p2["P2"]),
+        "P2 f32": (csrc + "attn_variants.cu", p2_repl, errs["P2 f32"], p2["P2 f32"]),
     }
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     probe_rows = {}
@@ -1013,7 +1036,7 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
         row = {"name": PROBE_KERNELS[key], "route": "cuda", "source": src, "replaces": repl,
                "launches": launches["12"][key], "max_abs_err": err, **dict(zip(keys, t[:5])),
                "launches_by_phase": {ph: n.get(key, 0) for ph, n in launches.items()}}
-        if key.startswith(("K9", "K10", "P1")):
+        if key.startswith(("K9", "K10", "P1", "P2")):
             row["dtype"] = "f32" if key.endswith("f32") else "bf16"
             row.update(t[5])
         rows.append(row)
@@ -1021,8 +1044,10 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
     for key in ("K10", "K10 f32"):  # the shape timed first is the row's; both under by_shape
         probe_rows[key]["by_shape"] = {label: {**dict(zip(keys, t[:5])), **t[5]}
                                        for label, t in k10[key].items()}
-    probe_rows["P2"]["by_mode"] = {sm: dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), t))
-                                   for sm, t in p2.items()}
+    for key in ("P2", "P2 f32"):
+        probe_rows[key]["by_mode"] = {sm: {**dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"),
+                                                      t[:4])), **t[4]}
+                                      for sm, t in timed[key].items()}
 
     # the f32 routes of A, B and C (FMA kernels), launched by phase 5's f32
     # call; their bound at f32 widths and the f32 FMA rate
@@ -1064,7 +1089,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from resshift_tpu_torch import _ext
-    from resshift_tpu_torch.ops import conv3x3 as cv, flash_attention as fa, shift as shift_ops
+    from resshift_tpu_torch.ops import attn_variants as av, conv3x3 as cv, flash_attention as fa
+    from resshift_tpu_torch.ops import shift as shift_ops
     from resshift_tpu_torch.ops import swin_block as sb, tail, vq, window_attention as wa
     from resshift_tpu_torch.ops import winograd as wg
     from resshift_tpu_torch.pipeline import ResShiftPipeline
@@ -1085,7 +1111,8 @@ def main() -> int:
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted((ROOT / "resshift_tpu_torch" / "_build").glob("*.log")):
         for line in log.read_text().splitlines():  # each kernel's name, then its counts
-            if "entry function" in line or "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line or "spill" in line
+                    or line.startswith("built in")):
                 print(f"  {log.stem}: {line.strip()}")
 
     # ---------------------------------------------------------------- 2
@@ -1101,7 +1128,9 @@ def main() -> int:
     conv_errs, conv_timed = check_conv_probes(dev)
     errs.update(conv_errs)
     timed.update(conv_timed)
-    errs["P2"], timed["P2"] = check_attn_variants(dev)
+    p2_errs, p2_timed = check_attn_variants(dev)
+    errs.update(p2_errs)
+    timed.update(p2_timed)
 
     # ---------------------------------------------------------------- 3
     print("phase 3: realsr_v1, full width, bf16, 15 steps, batch 8 of 64x64", flush=True)
@@ -1132,7 +1161,8 @@ def main() -> int:
                    "F": tail.GN_SILU_CONV3X3, "F tc": tail.GN_SILU_CONV3X3_TC,
                    "F stats": tail.GN_STATS, "K9": wa.WINDOW_ATTN_TC, "K9 f32": wa.WINDOW_ATTN,
                    "K10": wg.WINOGRAD_CONV3X3_TC, "K10 f32": wg.WINOGRAD_CONV3X3,
-                   "P1": cv.CONV3X3_TC, "P1 f32": cv.CONV3X3}
+                   "P1": cv.CONV3X3_TC, "P1 f32": cv.CONV3X3, "P2": av.ATTN_VARIANTS_TC,
+                   "P2 f32": av.ATTN_VARIANTS}
 
     def runner(p, x, seed, mask=None):
         """One sample call of pipeline `p` on `x` (and `mask`), the final
@@ -1204,7 +1234,7 @@ def main() -> int:
     want_launches = {"A": 270, "B": 270, "C": 2, "D": 1, "D finalize": 1, "E": 0, "F": 0,
                      "F tc": 0, "F stats": 0,
                      "fused shift": 90, "A f32": 0, "B f32": 0, "C f32": 0, "K9": 0, "K9 f32": 0,
-                     "K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0}
+                     "K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0, "P2": 0, "P2 f32": 0}
     if launches["3"] != want_launches:
         raise AssertionError(f"launch counts {launches['3']}, want {want_launches}")
     if out.shape != (BSZ, 256, 256, 3) or not torch.isfinite(out).all():

@@ -18,6 +18,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import torch
@@ -32,7 +33,7 @@ _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _SOURCES = ("swin_window_attn", "swin_window_attn_tc", "swin_mlp", "swin_mlp_tc", "flash_attn_1h",
             "flash_attn_1h_tc", "vq_nearest", "shift_tokens", "gn_silu_conv3x3",
             "gn_silu_conv3x3_tc", "window_attn", "window_attn_tc", "winograd_conv3x3",
-            "winograd_conv3x3_tc", "conv3x3", "conv3x3_tc", "attn_variants")
+            "winograd_conv3x3_tc", "conv3x3", "conv3x3_tc", "attn_variants", "attn_variants_tc")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int
@@ -62,24 +63,31 @@ def _lib_path(name: str) -> Path:
 def build_all() -> dict[str, Path]:
     """Compile every kernel source that has no up-to-date library, one
     `nvcc` process per source, all started together.  Returns the paths;
-    the compiler's register/spill report goes to `_build/<name>.log`."""
+    the compiler's register/spill report goes to `_build/<name>.log`,
+    closed by a line "built in <s> s" (the source's own wall time)."""
     _BUILD.mkdir(exist_ok=True)
     paths = {n: _lib_path(n) for n in _SOURCES}
     procs = {}
+    t0 = time.perf_counter()
     for n, p in paths.items():
         if not p.exists():
             tmp = p.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / f"{n}.cu")]
-            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                         text=True), tmp)
+            log = open(_BUILD / f"{n}.log", "w")
+            procs[n] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), tmp, log)
     failed = []
-    for n, (proc, tmp) in procs.items():
-        out, _ = proc.communicate()
-        (_BUILD / f"{n}.log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"--- {n} (nvcc rc {proc.returncode}) ---\n{out}")
-        else:
-            os.replace(tmp, paths[n])
+    while procs:
+        time.sleep(0.05)
+        for n in [n for n, (proc, *_) in procs.items() if proc.poll() is not None]:
+            proc, tmp, log = procs.pop(n)
+            log.close()
+            with open(log.name, "a") as f:
+                f.write(f"built in {time.perf_counter() - t0:.1f} s\n")
+            if proc.returncode != 0:
+                failed.append(f"--- {n} (nvcc rc {proc.returncode}) ---\n"
+                              f"{Path(log.name).read_text()}")
+            else:
+                os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths

@@ -1,6 +1,8 @@
-// Probe P2 `attn_variants`: kernel A without its statistics, with one of five
-// softmaxes, to split the attention's cost between its matrix products and
-// the softmax.
+// Probe P2 `attn_variants`, FMA route: kernel A without its statistics, with
+// one of five softmaxes, to split the attention's cost between its matrix
+// products and the softmax.  It takes f32 at every shape and bf16 at head
+// widths other than 16 or 32; bf16 at C % 16 == 0 with heads 16 or 32 wide
+// runs the tensor-core route, attn_variants_tc.cu.
 //
 // Replaces the TPU probe tools/profile_attn_variants.py `call_variant` (P2,
 // with its kernel `attn_kernel_variant`).
@@ -24,9 +26,9 @@
 // tile, the cross terms at -1e9) are not carried over; with them its noexp
 // and none modes mixed the grouped windows, here every window stands alone.
 //
-// Bound on the H100 at (64, 4096, 192) bf16, 6 heads: as K9 plus the
-// residual, about 90 GFLOP, 0.091 ms at the bf16 tensor-core rate; the FMA
-// loops are issue-bound as A is.
+// Bound on the H100 at (8, 4096, 192) f32, 6 heads: 11.3 GFLOP take 0.169
+// ms at 67 TFLOP/s f32 (the 50 MB of x and y 0.015 ms at 3.35 TB/s); the
+// FMA loops are issue-bound as A's f32 route is.
 #include "window_heads.cuh"
 
 namespace {

@@ -13,6 +13,10 @@
 // dtype codes passed from resshift_tpu_torch/_ext.py::dtype_code
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
+// softmax of each score row (ops/attn_variants.py SOFTMAX_MODES); A and K9
+// take SM_F32, P2 all five
+enum { SM_F32 = 0, SM_MXSUM = 1, SM_BF16EXP = 2, SM_NOEXP = 3, SM_NONE = 4 };
+
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_f(float v) { return v; }

@@ -38,8 +38,8 @@
 //     are read before its product.
 //
 // The body (design, shared-memory layout, rounding) is window_attn_tc.cuh's
-// with FUSED = true; kernel K9's bf16 route (window_attn_tc.cu) instantiates
-// it with FUSED = false.
+// with PolicyA; kernel K9's bf16 route (window_attn_tc.cu) instantiates it
+// with PolicyK9, probe P2's (attn_variants_tc.cu) with PolicyP2.
 //
 // Takes N <= 64, C <= 256 with C % 16 == 0, and hd = C / nh of 16 or 32
 // (ops/swin_block.attn_route).
@@ -49,7 +49,7 @@ namespace {
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2) swin_window_attn_tc_kernel(AttnArgs a) {
-  window_attn_tc_body<HD, true>(a);
+  window_attn_tc_body<HD, PolicyA>(a);
 }
 
 template <int HD>

@@ -9,9 +9,9 @@
 //
 // B is (nW or 1, nh, N, N) f32; window m takes bias row m % nW.
 //
-// Design.  Kernel A's tensor-core body (window_attn_tc.cuh) with FUSED =
-// false: no GroupNorm affine (xn = x), no roll (shift = 0), no residual (y =
-// proj) and no statistics epilogue or second pass.  A's layout covers K9's
+// Design.  Kernel A's tensor-core body (window_attn_tc.cuh) with PolicyK9:
+// no GroupNorm affine (xn = x), no roll (shift = 0), no residual (y = proj)
+// and no statistics epilogue or second pass.  A's layout covers K9's
 // windows: M windows of nW-window groups are B = M / nW images of T = nW N
 // window-major tokens with nwb = nW bias rows, so that window m takes bias
 // row m % nW as K9's windows do.  One window and 8 warps a CTA, cp.async
@@ -34,7 +34,7 @@ namespace {
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 2) window_attn_tc_kernel(AttnArgs a) {
-  window_attn_tc_body<HD, false>(a);
+  window_attn_tc_body<HD, PolicyK9>(a);
 }
 
 template <int HD>

@@ -1,10 +1,12 @@
 // The tensor-core body of window attention, shared by kernel A's bf16 route
-// (swin_window_attn_tc.cu: FUSED = true, GroupNorm affine + W-MSA/SW-MSA +
-// residual + statistics partials) and kernel K9's bf16 route
-// (window_attn_tc.cu: FUSED = false, W-MSA alone).  FUSED is a compile-time
-// switch: A's instantiation is the code A had before K9 shared it, and K9's
-// drops the four parts it does not compute (the GroupNorm affine, the roll,
-// the residual and the statistics).
+// (swin_window_attn_tc.cu: PolicyA, GroupNorm affine + W-MSA/SW-MSA +
+// residual + statistics partials), kernel K9's bf16 route
+// (window_attn_tc.cu: PolicyK9, W-MSA alone) and probe P2's bf16 route
+// (attn_variants_tc.cu: PolicyP2<SM>, the affine and the residual without
+// the statistics, P2's rounding and any of its five softmaxes).  A Policy
+// is fixed at compile time: A's instantiation is the code A had before K9
+// and P2 shared the body, and the others drop the parts they do not
+// compute.
 //
 // Design.  One CTA of 8 warps takes one window in 64 token rows (a window
 // of N < 64 tokens is masked on its keys and dropped on its rows).  Warp w
@@ -12,7 +14,7 @@
 // 64-column panel, so that each warp's heads (hd = 32: one, hd = 16: two)
 // lie in its own columns.  The raw rows come in with cp.async (one
 // contiguous 2C-byte row per token, gathered through the roll: row j reads
-// token rolled_token(j, +shift)) and, in A, are normalized in place to xn.
+// token rolled_token(j, +shift)) and, in A and P2, are normalized in place to xn.
 // The weights stream through two cp.async stages of one 64-column panel each
 // (C lines of 128 bytes), the next panel arriving while this one's products
 // run: for every panel p of the heads, Wq[:, p], Wk[:, p] and Wv[:, p],
@@ -26,9 +28,9 @@
 // accumulator layout), the softmax (quad shuffles for the row max and sum)
 // and the rounded probabilities stay in registers: the probabilities become
 // the A operand of p v without a trip through shared memory
-// (FlashAttention-2's layout identity).  In A, after the last panel's v the
-// raw rows are gathered again into the xn tile for the residual.  The
-// epilogue adds bproj (and in A the residual) in registers, in place in that
+// (FlashAttention-2's layout identity).  In A and P2, after the last panel's v
+// the raw rows are gathered again into the xn tile for the residual.  The
+// epilogue adds bproj (and in A and P2 the residual) in registers, in place in that
 // tile, and stores y row by row; A then sums the window's per-channel
 // statistics over its rows in order, and a second pass (launch_stats_reduce)
 // adds the windows in a fixed order, so the bits are the same in every run.
@@ -38,16 +40,20 @@
 // 144 KB at C = 256 (one CTA an SM).
 //
 // Rounding to bf16 where the plain versions (ops/window_attention.py
-// window_attention_plain, ops/swin_block.py) and the f32 routes
-// (window_heads.cuh, ROUND2 = true) round: in A xn = rnd(x*w + b) from an f32
-// multiply and add; q, k, v = rnd(rnd(acc) + bqkv); q = rnd(q * rnd(hd^-1/2));
-// scores rnd(rnd(acc) + rnd(B)); a true softmax in f32 (row max subtracted,
-// divided by the row sum), the probabilities rounded (exactly the A operand
-// of p v); head outputs rnd(acc); proj rnd(rnd(acc) + bproj); in A y = rnd(x
-// + proj).  Only the order of the f32 sums differs from the f32 routes.
+// window_attention_plain, ops/swin_block.py, ops/attn_variants.py) and the
+// f32 routes (window_heads.cuh) round.  ROUND2 = true (A, K9): in A xn =
+// rnd(x*w + b) from an f32 multiply and add; q, k, v = rnd(rnd(acc) + bqkv);
+// q = rnd(q * rnd(hd^-1/2)); scores rnd(rnd(acc) + rnd(B)); a true softmax in
+// f32 (row max subtracted, divided by the row sum), the probabilities
+// rounded (exactly the A operand of p v); head outputs rnd(acc); proj
+// rnd(rnd(acc) + bproj); in A y = rnd(x + proj).  ROUND2 = false (P2): q, k,
+// v = rnd(acc + bqkv), the scores acc + B in f32, y = rnd(x + (acc +
+// bproj)), and the softmax and its rounding by mode (attn_variants_tc.cu).
+// Only the order of the f32 sums differs from the f32 routes.
 //
 // Takes N <= 64, C <= 256 with C % 16 == 0, and hd = C / nh of 16 or 32
-// (ops/swin_block.attn_route, ops/window_attention.window_attn_route).
+// (ops/swin_block.attn_route, ops/window_attention.window_attn_route,
+// ops/attn_variants.attn_variant_route).
 #pragma once
 
 #include "mma.cuh"
@@ -57,8 +63,8 @@ namespace {
 constexpr int ROWS = 64;      // token rows a CTA: one window
 constexpr int THREADS = 256;  // 8 warps: 4 row blocks of 16 x 2 column halves
 
-// B images of T window-major tokens, nwb bias rows (1 or T / N); w, b, the
-// partials and the roll (ws, H, W, shift) are A's alone
+// B images of T window-major tokens, nwb bias rows (1 or T / N); w and b
+// are A's and P2's, the partials and the roll (ws, H, W, shift) A's alone
 struct AttnArgs {
   const bf16* x;
   const float* w;
@@ -105,8 +111,26 @@ __device__ __forceinline__ void warp_mm(uint32_t a_s, uint32_t b_s, int C, int a
   }
 }
 
+// What an instantiation of the body computes besides W-MSA:
+//   NORM    the GroupNorm affine of the rows on the way in and the residual
+//           on the way out (A, P2);
+//   STATS   the window's output statistics partials (A);
+//   ROUND2  window_heads.cuh's rounding policy: true for A and K9, false for
+//           P2 (see above);
+//   SM      the softmax (SM_*, common.cuh): SM_F32 for A and K9, any of the
+//           five for P2.
+template <bool NORM, bool STATS, bool ROUND2, int SM>
+struct Policy {
+  static constexpr bool norm = NORM, stats = STATS, round2 = ROUND2;
+  static constexpr int sm = SM;
+};
+using PolicyA = Policy<true, true, true, SM_F32>;
+using PolicyK9 = Policy<false, false, true, SM_F32>;
+template <int SM>
+using PolicyP2 = Policy<true, false, false, SM>;
+
 // One window (CTA blockIdx.x) of the attention, HD-wide heads.
-template <int HD, bool FUSED>
+template <int HD, class P>
 __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int C = a.C, N = a.N, cpr = C / 8, panels = (C + 63) / 64;
@@ -152,7 +176,7 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
   cp_async_commit();
   load_weights(0);
   cp_async_commit();
-  if constexpr (FUSED) {
+  if constexpr (P::norm) {
     // the image's GroupNorm fold (w | b, f32) in the k tile, free until the first k
     float* fold = reinterpret_cast<float*>(kt);
     for (int j = tid; j < 2 * C; j += THREADS)
@@ -232,8 +256,8 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
             b_ch, acc);
 
     if (part == 3) {
-      // output projection and bias (A: plus the residual), in place in the
-      // token tile
+      // output projection and bias (A, P2: plus the residual), in place in
+      // the token tile
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const int col = col0 + nt * 8 + 2 * t;
@@ -244,9 +268,15 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
         for (int hr = 0; hr < 2; ++hr) {
           __nv_bfloat162* ptr =
               reinterpret_cast<__nv_bfloat162*>(xt + pan(r0 + 8 * hr, col & ~7) + (col & 7) * 2);
-          const float o0 = rnd<bf16>(rnd<bf16>(acc[nt][2 * hr]) + bp0);
-          const float o1 = rnd<bf16>(rnd<bf16>(acc[nt][2 * hr + 1]) + bp1);
-          if constexpr (FUSED) {
+          float o0, o1;
+          if constexpr (P::round2) {
+            o0 = rnd<bf16>(rnd<bf16>(acc[nt][2 * hr]) + bp0);
+            o1 = rnd<bf16>(rnd<bf16>(acc[nt][2 * hr + 1]) + bp1);
+          } else {
+            o0 = acc[nt][2 * hr] + bp0;
+            o1 = acc[nt][2 * hr + 1] + bp1;
+          }
+          if constexpr (P::norm) {
             const __nv_bfloat162 xv = *ptr;
             *ptr = __floats2bfloat162_rn(__low2float(xv) + o0, __high2float(xv) + o1);
           } else {
@@ -255,7 +285,8 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
         }
       }
     } else {
-      // q, k or v of this warp's columns: rnd(rnd(acc) + bias)
+      // q, k or v of this warp's columns: rnd(rnd(acc) + bias), or rnd(acc +
+      // bias) under P2's rounding
       float v[4][4];
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -263,7 +294,10 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
         const float bq0 = __low2float(bq), bq1 = __high2float(bq);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          v[nt][e] = rnd<bf16>(rnd<bf16>(acc[nt][e]) + ((e & 1) ? bq1 : bq0));
+          if constexpr (P::round2)
+            v[nt][e] = rnd<bf16>(rnd<bf16>(acc[nt][e]) + ((e & 1) ? bq1 : bq0));
+          else
+            v[nt][e] = rnd<bf16>(acc[nt][e] + ((e & 1) ? bq1 : bq0));
           if (part == 0) v[nt][e] = rnd<bf16>(v[nt][e] * scale);
         }
       }
@@ -288,7 +322,7 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
 
     if (part == 2) {
       __syncthreads();  // k and v of the panel are complete; xn is read no more
-      if constexpr (FUSED) {
+      if constexpr (P::norm) {
         if (p == panels - 1) {
           load_x();  // the raw rows again, for the residual
           cp_async_commit();
@@ -317,7 +351,13 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
           }
         }
 
-        // bias and mask, then a true softmax over rows r0 (e = 0, 1) and r0 + 8
+        // bias and mask, then the softmax over rows r0 (e = 0, 1) and r0 + 8.
+        // A masked key (key >= N) must come out as p = 0: at -inf it stays
+        // out of the row max, and exp() takes it to 0 (f32, mxsum, bf16exp);
+        // noexp sets it to 0 after the max, none at once.
+        constexpr int SM = P::sm;
+        constexpr bool MAX = SM == SM_F32 || SM == SM_BF16EXP || SM == SM_NOEXP;
+        const float MASKED = SM == SM_NONE ? 0.f : -INFINITY;
         float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
@@ -325,40 +365,68 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
           for (int e = 0; e < 4; ++e) {
             const int key = nt * 8 + 2 * t + (e & 1);
             const float2 bv = bb[nt][e >> 1];
-            sc[nt][e] = key < N ? rnd<bf16>(rnd<bf16>(sc[nt][e]) + rnd<bf16>((e & 1) ? bv.y : bv.x))
-                                : -INFINITY;
-            mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+            if constexpr (P::round2)
+              sc[nt][e] = key < N ? rnd<bf16>(rnd<bf16>(sc[nt][e]) +
+                                              rnd<bf16>((e & 1) ? bv.y : bv.x))
+                                  : MASKED;
+            else
+              sc[nt][e] = key < N ? sc[nt][e] + ((e & 1) ? bv.y : bv.x) : MASKED;
+            if constexpr (MAX) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
           }
         float sum[2] = {0.f, 0.f};
+        if constexpr (MAX) {
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        }
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            sc[nt][e] = expf(sc[nt][e] - mx[e >> 1]);
-            sum[e >> 1] += sc[nt][e];
+          for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
           }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-          sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
         }
-        // the probabilities as the A operand of p v, 16 keys a step: e / sum
-        // correctly rounded (Markstein: one rounded reciprocal a row, then a
-        // product and two FMAs), with e scaled by 2^64 so that no step leaves
-        // the normal range: the compiler's division would take its slow path
-        // for the tiny terms of masked keys.  The row sum is in [1, 64] (its
-        // max term is exp(0)), so a term below 2^-134 divides to below half
-        // bf16's least subnormal and rounds to 0; it is set to 0 first.
+        if constexpr (SM != SM_NONE) {
+          // the terms and their f32 row sum: f32 exp(s - max); mxsum
+          // rnd(exp(s - 30)) (s carries the shift of 30 already); bf16exp
+          // rnd(exp(rnd(s - max))); noexp s - max
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              if constexpr (SM == SM_F32)
+                sc[nt][e] = expf(sc[nt][e] - mx[e >> 1]);
+              else if constexpr (SM == SM_MXSUM)
+                sc[nt][e] = rnd<bf16>(expf(sc[nt][e] - 30.f));
+              else if constexpr (SM == SM_BF16EXP)
+                sc[nt][e] = rnd<bf16>(expf(rnd<bf16>(sc[nt][e] - mx[e >> 1])));
+              else
+                sc[nt][e] = nt * 8 + 2 * t + (e & 1) < N ? sc[nt][e] - mx[e >> 1] : 0.f;
+              sum[e >> 1] += sc[nt][e];
+            }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+            sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+            if constexpr (SM == SM_BF16EXP) sum[r] = rnd<bf16>(sum[r]);
+          }
+        }
+        // the probabilities as the A operand of p v, 16 keys a step.  f32 and
+        // bf16exp: e / sum correctly rounded (Markstein: one rounded
+        // reciprocal a row, then a product and two FMAs), with e scaled by
+        // 2^64 so that no step leaves the normal range: the compiler's
+        // division would take its slow path for the tiny terms of masked
+        // keys.  The row sum is in [1, 64] (its max term is exp(0)), so a
+        // term below 2^-134 divides to below half bf16's least subnormal and
+        // rounds to 0; it is set to 0 first.  noexp: an IEEE division (its
+        // sum is negative and unbounded).  mxsum: p unnormalised, p v scaled
+        // by rc below; none: the raw scores.
         const float rc[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
         auto prob = [&](float e, int r) {
-          const float x = e < 0x1p-134f ? 0.f : __fmul_rn(e, 0x1p64f);
-          const float q0 = __fmul_rn(x, rc[r]);
-          return __fmul_rn(__fmaf_rn(rc[r], __fmaf_rn(-sum[r], q0, x), q0), 0x1p-64f);
+          if constexpr (SM == SM_F32 || SM == SM_BF16EXP) {
+            const float x = e < 0x1p-134f ? 0.f : __fmul_rn(e, 0x1p64f);
+            const float q0 = __fmul_rn(x, rc[r]);
+            return __fmul_rn(__fmaf_rn(rc[r], __fmaf_rn(-sum[r], q0, x), q0), 0x1p-64f);
+          } else if constexpr (SM == SM_NOEXP) {
+            return __fdiv_rn(e, sum[r]);
+          } else {
+            return e;
+          }
         };
         uint32_t pf[4][4];
 #pragma unroll
@@ -384,9 +452,12 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
         for (int nt = 0; nt < HD / 8; ++nt) {
           const int col = p * 64 + c0 + nt * 8 + 2 * t;
 #pragma unroll
-          for (int hr = 0; hr < 2; ++hr)
+          for (int hr = 0; hr < 2; ++hr) {
+            float o0 = o[nt][2 * hr], o1 = o[nt][2 * hr + 1];
+            if constexpr (SM == SM_MXSUM) o0 = __fmul_rn(o0, rc[hr]), o1 = __fmul_rn(o1, rc[hr]);
             *reinterpret_cast<uint32_t*>(ot + pan(r0 + 8 * hr, col & ~7) + (col & 7) * 2) =
-                pack_bf16(o[nt][2 * hr], o[nt][2 * hr + 1]);
+                pack_bf16(o0, o1);
+          }
         }
       }
     }
@@ -401,7 +472,7 @@ __device__ __forceinline__ void window_attn_tc_body(AttnArgs a) {
         *reinterpret_cast<const uint4*>(xt + pan(r, ch * 8));
   }
 
-  if constexpr (FUSED) {
+  if constexpr (P::stats) {
     // the window's share of the output statistics, its rows summed in order
     for (int c = tid; c < C; c += THREADS) {
       float as = 0.f, aq = 0.f;

@@ -19,9 +19,6 @@
 
 #include "common.cuh"
 
-// softmax of each score row; A and K9 take SM_F32, P2 all five
-enum { SM_F32 = 0, SM_MXSUM = 1, SM_BF16EXP = 2, SM_NOEXP = 3, SM_NONE = 4 };
-
 constexpr int WH_THREADS = 256;
 
 // Shared memory of one window, in floats: xs the tokens (N x ldx), qs one

@@ -2,11 +2,16 @@
 softmaxes: the ablations that split the attention's cost between its
 matrix products and its softmax.
 
-Probe P2 `attn_variants` (csrc/attn_variants.cu) replaces the TPU probe
-`tools/profile_attn_variants.py::call_variant` (P2);
-`tools/profile_attn_variants.py` reaches it, beside kernel A.  The wrapper
-runs the plain PyTorch version for a CPU tensor, launches the kernel for a
-CUDA tensor, and raises for anything else.
+Probe P2 replaces the TPU probe
+`tools/profile_attn_variants.py::call_variant` (P2) with two routes, picked
+by `attn_variant_route` from the dtype and the shape: bf16 with C % 16 == 0
+and heads 16 or 32 wide runs `attn_variants_tc` (csrc/attn_variants_tc.cu,
+kernel A's tensor-core body with P2's rounding and softmaxes); f32, and
+bf16 at other head widths, run the FMA kernel `attn_variants`
+(csrc/attn_variants.cu).  Counters `ATTN_VARIANTS_TC` and `ATTN_VARIANTS`
+say which ran.  `tools/profile_attn_variants.py` reaches it, beside kernel
+A.  The wrapper runs the plain PyTorch version for a CPU tensor, launches
+the route's kernel for a CUDA tensor, and raises for anything else.
 
     y = x + proj(attn(x*w + b)),  s = q k^T hd^-1/2 + B - 30 per head
 
@@ -31,12 +36,13 @@ import torch
 
 from .. import _ext
 from .._ext import I, P
-from .window_attention import rounded
+from .window_attention import rounded, tc_body_route
 
 __all__ = ["SOFTMAX_MODES", "SOFTMAX_SHIFT", "attn_variant_plain", "attn_variant",
-           "ATTN_VARIANTS"]
+           "attn_variant_route", "ATTN_VARIANTS", "ATTN_VARIANTS_TC"]
 
 ATTN_VARIANTS = _ext.Kernel("attn_variants", [P] * 9 + [I] * 8)
+ATTN_VARIANTS_TC = _ext.Kernel("attn_variants_tc", [P] * 9 + [I] * 7)
 
 SOFTMAX_MODES = ("f32", "mxsum", "bf16exp", "noexp", "none")
 SOFTMAX_SHIFT = 30.0
@@ -80,26 +86,45 @@ def attn_variant_plain(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: 
     return (x.float() + proj.reshape(bsz, t, c)).to(dt)
 
 
+def attn_variant_route(dtype: torch.dtype, n: int, c: int, num_heads: int) -> str:
+    """Which kernel takes windows of `n` tokens x `c` channels in
+    `num_heads` heads: "tc" (bf16 with C % 16 == 0 and heads 16 or 32
+    wide: `attn_variants_tc`, on the tensor cores) or "fma" (f32 at any
+    shape, bf16 at the other head widths: `attn_variants`).  Both take n <=
+    64, C <= 256 and heads up to 64 wide; raises ValueError for other
+    shapes, TypeError for dtypes other than float32 and bfloat16.  The gate
+    is K9's (`window_attention.window_attn_route`): both routes run kernel
+    A's bodies."""
+    return tc_body_route("attn_variants", dtype, n, c, num_heads)
+
+
 def _kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win, softmax):
     if x.dim() != 3:
         raise ValueError(f"attn_variants takes (B, T, C) tokens, not {tuple(x.shape)}")
     bsz, t, c = x.shape
+    route = attn_variant_route(x.dtype, n_win, c, num_heads)
     nwb = bias_mask.shape[0]
-    if (softmax not in SOFTMAX_MODES or t % n_win or n_win > 64 or c % num_heads or c > 256
-            or c // num_heads > 64 or bias_mask.shape != (nwb, num_heads, n_win, n_win)
-            or nwb not in (1, t // n_win) or wqkv.shape != (c, 3 * c) or wproj.shape != (c, c)):
+    if (softmax not in SOFTMAX_MODES or t % n_win
+            or bias_mask.shape != (nwb, num_heads, n_win, n_win) or nwb not in (1, t // n_win)
+            or wqkv.shape != (c, 3 * c) or wproj.shape != (c, c)):
         raise ValueError(f"attn_variants: unsupported call x={tuple(x.shape)} heads={num_heads} "
                          f"N={n_win} bias={tuple(bias_mask.shape)} softmax={softmax!r}")
     dt = x.dtype
-    code = _ext.dtype_code(dt)  # f32 or bf16, else raises
     x = x.contiguous()
     args = [a.float().contiguous() for a in (w, b)]
     args += [a.to(dt).contiguous() for a in (wqkv, bqkv, wproj, bproj)]
     bm = (bias_mask.float() - SOFTMAX_SHIFT).contiguous()
+    if route == "tc":  # cp.async of the rows and weights, pairs of the biases
+        x, bm = _ext.aligned16(x), _ext.aligned16(bm)
+        args[2:] = [_ext.aligned16(a) for a in args[2:]]
     y = torch.empty_like(x)
-    ATTN_VARIANTS(x.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(), y.data_ptr(),
-                  code, SOFTMAX_MODES.index(softmax), bsz, t, c, num_heads, n_win, nwb,
-                  variant=softmax)
+    ptrs = [x.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(), y.data_ptr()]
+    mode = SOFTMAX_MODES.index(softmax)
+    if route == "tc":
+        ATTN_VARIANTS_TC(*ptrs, mode, bsz, t, c, num_heads, n_win, nwb, variant=softmax)
+    else:
+        ATTN_VARIANTS(*ptrs, _ext.dtype_code(dt), mode, bsz, t, c, num_heads, n_win, nwb,
+                      variant=softmax)
     return y
 
 

@@ -29,8 +29,8 @@ import torch
 from .. import _ext
 from .._ext import I, P
 
-__all__ = ["window_attention_plain", "window_attention", "window_attn_route", "WindowAttentionFn",
-           "WINDOW_ATTN", "WINDOW_ATTN_TC"]
+__all__ = ["window_attention_plain", "window_attention", "window_attn_route", "tc_body_route",
+           "WindowAttentionFn", "WINDOW_ATTN", "WINDOW_ATTN_TC"]
 
 WINDOW_ATTN = _ext.Kernel("window_attn", [P] * 7 + [I] * 6)
 WINDOW_ATTN_TC = _ext.Kernel("window_attn_tc", [P] * 7 + [I] * 5)
@@ -59,6 +59,21 @@ def window_attention_plain(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: i
     return out @ wproj.to(dt) + bproj.to(dt)
 
 
+def tc_body_route(kernel: str, dtype: torch.dtype, n: int, c: int, num_heads: int) -> str:
+    """The route gate of the kernels with two routes on kernel A's bodies,
+    K9 and P2 (`kernel` names it in the errors): "tc" for bf16 with C % 16
+    == 0 and heads 16 or 32 wide (window_attn_tc.cuh), "fma" for f32 at any
+    shape and bf16 at the other head widths (window_heads.cuh).  Both take
+    n <= 64, C <= 256 and heads up to 64 wide; raises ValueError for other
+    shapes, TypeError for dtypes other than float32 and bfloat16."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel} takes float32 or bfloat16, not {dtype}")
+    hd = c // num_heads if num_heads > 0 and c % num_heads == 0 else 0
+    if not (0 < n <= 64 and 0 < c <= 256 and 0 < hd <= 64):
+        raise ValueError(f"{kernel}: no route for N={n}, C={c}, heads={num_heads}")
+    return "tc" if dtype == torch.bfloat16 and c % 16 == 0 and hd in (16, 32) else "fma"
+
+
 def window_attn_route(dtype: torch.dtype, n: int, c: int, num_heads: int) -> str:
     """Which kernel takes windows of `n` tokens x `c` channels in
     `num_heads` heads: "tc" (bf16 with C % 16 == 0 and heads 16 or 32
@@ -66,12 +81,7 @@ def window_attn_route(dtype: torch.dtype, n: int, c: int, num_heads: int) -> str
     shape, bf16 at the other head widths: `window_attn`).  Both take n <=
     64, C <= 256 and heads up to 64 wide; raises ValueError for other
     shapes, TypeError for dtypes other than float32 and bfloat16."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"window_attn takes float32 or bfloat16, not {dtype}")
-    hd = c // num_heads if num_heads > 0 and c % num_heads == 0 else 0
-    if not (0 < n <= 64 and 0 < c <= 256 and 0 < hd <= 64):
-        raise ValueError(f"window_attn: no route for N={n}, C={c}, heads={num_heads}")
-    return "tc" if dtype == torch.bfloat16 and c % 16 == 0 and hd in (16, 32) else "fma"
+    return tc_body_route("window_attn", dtype, n, c, num_heads)
 
 
 def _kernel(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: int) -> torch.Tensor:

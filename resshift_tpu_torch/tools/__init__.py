@@ -4,7 +4,7 @@
     python -m resshift_tpu_torch.tools.profile_winograd [--only=res@64] [--plain-formulation]
         [--dtype bf16|f32]
     python -m resshift_tpu_torch.tools.profile_conv [--rows 1,2,4,8] [--dtype bf16|f32]
-    python -m resshift_tpu_torch.tools.profile_attn_variants
+    python -m resshift_tpu_torch.tools.profile_attn_variants [--dtype bf16|f32]
     python -m resshift_tpu_torch.tools.profile_winograd_tilings [--batch 8]
 
 They reach kernels K9 (window attention), K10 (Winograd), P1 (direct 3x3
@@ -34,8 +34,8 @@ __all__ = ["PEAK_BF16", "DTYPES", "add_common_args", "pick_device", "card", "tim
 
 # H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, at a 700 W limit)
 PEAK_BF16 = 989e12
-# --dtype of the conv tools: bf16 takes K10's and P1's tensor-core routes,
-# f32 their FMA routes
+# --dtype of the tools: bf16 takes K9's, K10's, P1's and P2's tensor-core
+# routes, f32 their FMA routes
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 

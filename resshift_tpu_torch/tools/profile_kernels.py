@@ -1,5 +1,6 @@
-"""Times kernels A, K9, D, E and F at the shapes the port runs them, by CUDA
-events around the wrapper and by the profiler's device time of one call.
+"""Times kernels A, K9, D, E, F and P2 at the shapes the port runs them, by
+CUDA events around the wrapper and by the profiler's device time of one
+call.
 
     python -m resshift_tpu_torch.tools.profile_kernels [--n-iter 20] [--reps 3]
 
@@ -15,7 +16,10 @@ the decodes' shapes: 32768 x 8192 x 3 (the f4 tile batch), 4096 x 4096 x 8
 `use_pallas=True` at `TAIL_SHAPES` (the UNet head at a tile batch of 8 and
 at faceir's one face, f32; the f4 and f8 decoder tails, bf16), each on the
 route its dtype takes, its statistics pass and its conv kernel apart in
-the device time by name.  The device time is the sum of every device event of a call (kernels and
+the device time by name.  P2: `attn_variants.attn_variant`, (8, 4096, 192),
+6 heads, each of its five softmaxes in bf16 and in f32 (in a checkout
+where bf16 has a tensor-core route, the two dtypes time both routes).  The
+device time is the sum of every device event of a call (kernels and
 memsets), with the events by name beside it.  The tool uses only the
 wrappers' public functions, so the same file times a checkout of an
 earlier commit: copy it into that checkout's `resshift_tpu_torch/tools/`
@@ -29,6 +33,7 @@ import argparse
 import torch
 
 from . import add_common_args, emit, pick_device, time_ms
+from ..ops import attn_variants as av
 from ..ops import shift
 from ..ops import swin_block as sb
 from ..ops import tail
@@ -80,6 +85,12 @@ def _cases(dev: torch.device) -> dict:
     cases = {"A (8, 4096, 192) bf16": lambda: sb.norm_attn_residual_stats(
                  xa, wa_, ba, *wts, bias, NH, N),
              "K9 (4096, 64, 192) bf16": lambda: wa.window_attention(xk, *wts, bias, NH)}
+    for dt in (bf, torch.float32):
+        tag = "bf16" if dt == bf else "f32"
+        p2 = (xa.to(dt), wa_, ba, *(w.to(dt) for w in wts), bias, NH, N)
+        for sm in av.SOFTMAX_MODES:
+            cases[f"P2 {sm} (8, 4096, 192) {tag}"] = (lambda p2=p2, sm=sm:
+                                                      av.attn_variant(*p2, sm))
     for label, (m, k, d) in VQ_SHAPES.items():
         z, emb = rn(m, d), 0.5 * rn(k, d)
         cases[f"D {label} ({m} x {k} x {d})"] = (lambda z=z, emb=emb:
@@ -110,7 +121,8 @@ def main(argv=None) -> dict:
                            getattr(wa, "WINDOW_ATTN_TC", None), wa.WINDOW_ATTN, vq.VQ_NEAREST,
                            getattr(vq, "VQ_FINALIZE", None), shift.SHIFT_TOKENS,
                            getattr(tail, "GN_STATS", None),
-                           getattr(tail, "GN_SILU_CONV3X3_TC", None), tail.GN_SILU_CONV3X3)
+                           getattr(tail, "GN_SILU_CONV3X3_TC", None), tail.GN_SILU_CONV3X3,
+                           getattr(av, "ATTN_VARIANTS_TC", None), av.ATTN_VARIANTS)
                if k is not None]
     for k in kernels:
         k.reset()

@@ -7,7 +7,9 @@ family of profile_winograd's census, and two bf16 calls giving the same
 bits); the same for kernel A, whose two calls must also give the
 same bits, and whose statistics reduce holds against an f64 sum over 4096
 windows; for K9, whose bf16 route takes the tensor cores only at heads 16
-or 32 wide, which route ran, and at full width two calls' bits; for D,
+or 32 wide, which route ran, and at full width two calls' bits; the same
+for P2 in each of its five softmaxes, with two calls' bits at every shape;
+for D,
 which splits the codebook across CTAs, ragged rows and slices and exact
 ties across slices; for F, its statistics pass `gn_stats` against the plain
 fold, and both conv routes (bf16 at C % 16 == 0 on the tensor cores, else
@@ -503,17 +505,32 @@ def test_winograd_tc_census(gen, h, c, co):
     _close(got, direct_conv(x.float(), wk.float(), bias), x.dtype)
 
 
+# P2's shapes (B, T, C, heads, N, one bias row or one a window): bf16 takes
+# the tensor-core route at heads 16 or 32 wide (a panel cut short at C = 48,
+# the widest C at 256), the FMA route at heads 24 wide; f32 the FMA route
+P2_SHAPES = [(3, 96, 64, 2, 16, False), (2, 98, 48, 3, 49, True), (2, 64, 256, 16, 16, True),
+             (1, 98, 256, 8, 49, False), (2, 98, 96, 4, 49, True)]
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("softmax", av.SOFTMAX_MODES)
-def test_attn_variants_small_windows(gen, dt, softmax):
-    b, t, c, nh, n = 3, 96, 64, 2, 16
+@pytest.mark.parametrize("b,t,c,nh,n,one_bias", P2_SHAPES)
+def test_attn_variants_small_windows(gen, dt, softmax, b, t, c, nh, n, one_bias):
     rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     x = rn(b, t, c).to(dt)
-    wa_, ba = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c))
+    wa_, ba = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c), num_groups=16 if c % 32 else 32)
     wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
            (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
-    bm = 0.02 * rn(t // n, nh, n, n)
+    bm = 0.02 * rn(1 if one_bias else t // n, nh, n, n)
+    route = av.attn_variant_route(dt, n, c, nh)
+    assert route == ("tc" if dt == torch.bfloat16 and c // nh in (16, 32) else "fma")
+    kern = av.ATTN_VARIANTS_TC if route == "tc" else av.ATTN_VARIANTS
+    before = (av.ATTN_VARIANTS_TC.launches, av.ATTN_VARIANTS.launches)
     got = av.attn_variant(x, wa_, ba, *wts, bm, nh, n, softmax)
+    again = av.attn_variant(x, wa_, ba, *wts, bm, nh, n, softmax)
+    assert (av.ATTN_VARIANTS_TC.launches, av.ATTN_VARIANTS.launches) == (
+        before[0] + 2 * (kern is av.ATTN_VARIANTS_TC), before[1] + 2 * (kern is av.ATTN_VARIANTS))
+    assert torch.equal(got, again)
     _close(got, av.attn_variant_plain(x, wa_, ba, *wts, bm, nh, n, softmax), dt)
     if softmax == "f32" and dt == torch.float32:  # kernel A's y, but for the folded shift
         _close(got, sb.norm_attn_residual_stats(x, wa_, ba, *wts, bm, nh, n)[0], dt)
