@@ -83,6 +83,28 @@ for its route, each mode timed by events and by the profiler's device time;
      each exits 0, launches its kernels and, for K9, K10, P1 and P2, not the
      other dtype's route (their counts are the tools' own, read from the
      JSON line each prints);
+ 13. serving in process: a `Predictor` (realsr_v3, full width, bf16,
+     seeded random weights) warmed up at every bucket (1 ... 16) at 64x64,
+     then a concurrent burst of more requests than `max_batch` from threads:
+     each output's shape and finiteness, distinct outputs for identical
+     inputs, the batch histogram, A-D's launches per forward on their
+     tensor-core routes; then, with the forward held at a gate, a request
+     beyond `max_queue` must raise ServerBusyError; forwards/s, Mpx/s and
+     forward p50/p99;
+ 14. the HTTP path: `python -m resshift_tpu_torch.tools.serve_loadtest` in a
+     subprocess (which starts the server in another): exit 0, every 200 a
+     PNG of the right size, the overload burst answered 429 with
+     Retry-After, the /metrics counts adding up;
+ 15. DDPM: configs/ddpm_ablation.yaml's diffusion block (DDIM, 50 respaced
+     steps of 1000) on the realsr_v1 model at full width, bf16, 8 x 64x64
+     tiles: launch counts derived from the structure, >= 35 dB final-latent
+     PSNR against the same call through the plain versions, ms per call;
+ 16. realsr_v1 on one batch of 8 tiles: `sample_time_parallel` at sweeps = T
+     against `sample` with the same seed (>= 35 dB latent PSNR, and the share
+     of bit-equal latent values), at sweeps = T // 3 (PSNR reported, not
+     gated), `sample_progressive`'s final output against `sample`'s (>= 35
+     dB) and its strip's shape; launch counts (A and B: sweeps x one step's
+     count), ms per call at each sweep count;
 then print the `kernels` JSON line and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
@@ -840,7 +862,8 @@ def run_tools(root: Path) -> dict:
     return counts
 
 
-def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = False) -> dict:
+def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = False,
+                      steps: int | None = None) -> dict:
     """Kernel launches of one sample call at one (lat_h, lat_w) latent tile,
     from the UNet's structure: a BasicLayer of `swin_depth` blocks after the
     first ResBlock of each level in `attention_resolutions` and in the
@@ -851,7 +874,9 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
     middle, D once; where both are pinned (`tail_pinned`), kernel F once per
     step in the UNet head and once in the decoder tail, each a `gn_stats`
     launch and the conv on the route its dtype and width take (the head in
-    f32: the FMA kernel "F"; the tail in bf16: the tensor cores, "F tc")."""
+    f32: the FMA kernel "F"; the tail in bf16: the tensor cores, "F tc").
+    `steps` is the UNet calls of the chain (by default the config's steps:
+    a respaced chain's count or a Picard chain's sweeps are given)."""
     m = cfg["model"]
     win, depth, size = m["window_size"], m["swin_depth"], m["image_size"]
     mult, attn = m["channel_mult"], m["attention_resolutions"]
@@ -863,7 +888,7 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
     for level in reversed(range(len(mult))):
         layers += [ds] if ds in attn else []
         ds = ds * 2 if level else ds
-    steps = cfg["diffusion"]["steps"]
+    steps = steps or cfg["diffusion"]["steps"]
     n = {"A": 0, "B": 0, "E": 0, "fused shift": 0}
     for ds in layers:
         ws = min(win, ds)
@@ -1147,6 +1172,7 @@ def main() -> int:
     pipe = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16)
     pipe.init_params(seed=0)
     sds = with_biases(pipe)
+    v1_sds = sds  # realsr_v1's weights, for phases 15-16 (phases 9-10 rebind sds)
     pipe.load_state_dicts(**sds)
     lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(2)).to(dev) * 2 - 1
     latents = {}
@@ -1476,6 +1502,252 @@ def main() -> int:
     launches["12"] = {key: counts.get(kern.name, 0) for key, kern in all_kernels.items()}
     launches["12"].update({key: counts.get(name, 0) for key, name in PROBE_KERNELS.items()})
     print(f"  launches in phase 12: {launches['12']}", flush=True)
+
+    # ---------------------------------------------------------------- 13
+    print("phase 13: serving in process: Predictor (realsr_v3, full width, bf16), buckets "
+          "1-16 warmed up at 64x64, a concurrent burst", flush=True)
+    import threading
+
+    from resshift_tpu_torch.serve import Predictor, ServerBusyError
+
+    burst, max_batch, max_queue = 40, 16, 40  # the whole burst fits in the queue
+    pred = Predictor("realsr_v3", max_batch=max_batch, max_queue=max_queue,
+                     batch_window_s=0.05, seed=14)
+    try:
+        t1 = time.perf_counter()
+        pred.warmup((64, 64))
+        print(f"  warmup of buckets {pred.batch_sizes}: {time.perf_counter() - t1:.1f} s",
+              flush=True)
+        n0 = len(pred.batch_sizes)
+        img = torch.randint(0, 256, (64, 64, 3), generator=torch.Generator().manual_seed(15),
+                            dtype=torch.uint8).numpy()
+        outs, errors = {}, []
+
+        def ask(i):
+            try:
+                outs[i] = pred.predict(img)
+            except Exception as e:  # noqa: BLE001 -- raised below, after the join
+                errors.append(e)
+
+        reset()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(burst)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t1
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"burst failed: {errors[:3]}")
+        sizes = pred.batch_sizes[n0:]
+        forwards = len(sizes)
+        launches["13"] = read_launches(all_kernels, sb)  # read after the join
+        per = expected_launches(pred.pipe.config, 64, 64)
+        want = {k: v * forwards for k, v in per.items()}
+        print(f"  batch sizes {sizes}; launches {launches['13']} (derived: {forwards} x {per})",
+              flush=True)
+        if launches["13"] != want or not all(launches["13"][k] for k in "ABCD"):
+            raise AssertionError(f"launch counts {launches['13']}, want {want}")
+        if sum(sizes) != burst or max(sizes) < 2:
+            raise AssertionError(f"batch sizes {sizes}: want {burst} images in batches")
+        for i in range(burst):
+            o = outs[i]
+            if o.shape != (256, 256, 3) or not np.isfinite(o).all():
+                raise AssertionError(f"output {i}: {o.shape}, finite {np.isfinite(o).all()}")
+            if i and np.array_equal(o, outs[0]):
+                raise AssertionError(f"outputs 0 and {i} are equal for identical inputs")
+        lat = sorted(list(pred._lat)[-forwards:])
+        q = lambda f: lat[min(len(lat) - 1, int(f * len(lat)))] * 1e3
+        print(f"  {burst} requests in {wall * 1e3:.1f} ms: {forwards / wall:.3f} forwards/s, "
+              f"{burst * 256 * 256 / wall / 1e6:.4f} Mpx/s of 256x256 output, forward p50 "
+              f"{q(0.5):.1f} ms, p99 {q(0.99):.1f} ms, on {card}", flush=True)
+
+        # one forward held at a gate, the queue filled: one more is refused
+        gate, entered = threading.Event(), threading.Event()
+        real = pred.pipe.sample
+
+        def held(*a, **k):
+            entered.set()
+            gate.wait(120)
+            return real(*a, **k)
+
+        pred.pipe.sample = held
+        errors.clear()
+        waiting = [threading.Thread(target=ask, args=(burst,))]
+        waiting[0].start()
+        entered.wait(60)
+        waiting += [threading.Thread(target=ask, args=(burst + 1 + i,))
+                    for i in range(max_queue)]
+        for t in waiting[1:]:
+            t.start()
+        deadline = time.monotonic() + 60
+        while pred.queue_depth() < max_queue and time.monotonic() < deadline:
+            time.sleep(0.01)
+        refused = False
+        try:
+            pred.predict(img)
+        except ServerBusyError:
+            refused = True
+        finally:
+            gate.set()
+        for t in waiting:
+            t.join(timeout=600)
+        pred.pipe.sample = real
+        if not refused or errors:
+            raise AssertionError(f"a request beyond max_queue {max_queue} was not refused "
+                                 f"(refused {refused}, errors {errors[:3]})")
+        print(f"  queue full at {max_queue}: the next request raised ServerBusyError; "
+              f"metrics {pred.metrics()}", flush=True)
+    finally:
+        pred.close()
+    del pred, outs
+
+    # ---------------------------------------------------------------- 14
+    print("phase 14: python -m resshift_tpu_torch.tools.serve_loadtest (the HTTP path, a "
+          "server subprocess)", flush=True)
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    lt = dict(burst=48, threads=16, overload=64, max_queue=24, max_batch=16)
+    cmd = [sys.executable, "-m", "resshift_tpu_torch.tools.serve_loadtest", "--device", "cuda",
+           "--port", str(port), *[a for k, v in lt.items()
+                                  for a in (f"--{k.replace('_', '-')}", str(v))]]
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"serve_loadtest failed (rc {r.returncode}):\n{r.stdout}\n"
+                             f"{r.stderr[-4000:]}")
+    rep = json.loads(r.stdout.strip().splitlines()[-1])
+    b, o, m = rep["burst"], rep["overload"], rep["server_metrics"]
+    warm = sum(2 ** i for i in range(int(math.log2(lt["max_batch"])) + 1))
+    print(f"  card {rep['card']}; server up in {rep['startup_s']:.1f} s; burst {b}", flush=True)
+    print(f"  overload {o}", flush=True)
+    print(f"  /metrics {m}", flush=True)
+    problems = [msg for bad, msg in (
+        (b["ok"] != lt["burst"] or b["png_ok"] != b["ok"], "a burst request failed or its PNG "
+                                                           "is not 256x256 RGB"),
+        (o["rejected"] == 0 or not o["retry_after_set"], "the overload burst got no 429 with "
+                                                         "Retry-After"),
+        (o["ok"] != o["png_ok"] or o["ok"] + o["rejected"] != lt["overload"],
+         "an overload request got neither a PNG nor 429"),
+        (m["requests_rejected"] != o["rejected"], "/metrics rejected != 429s"),
+        (m["requests_done"] != warm + 1 + b["ok"] + o["ok"] or m["requests_error"],
+         "/metrics requests_done != warmup + first + 200s"),
+        (sum(int(k) * v for k, v in m["batch_size_hist"].items()) != m["requests_done"],
+         "the batch histogram does not add up")) if bad]
+    if problems:
+        raise AssertionError(f"serve_loadtest: {problems}")
+    print(f"  through HTTP: {b['mpx_per_s']:.4f} Mpx/s, client p50 {b['p50_ms']:.1f} ms, p99 "
+          f"{b['p99_ms']:.1f} ms; overload: {o['rejected']} of {lt['overload']} got 429 in at "
+          f"most {o['reject_latency_ms_max']:.1f} ms", flush=True)
+
+    # ---------------------------------------------------------------- 15
+    print("phase 15: DDPM (configs/ddpm_ablation.yaml: DDIM, 50 of 1000 steps) on realsr_v1, "
+          "full width, bf16, 8 x 64x64", flush=True)
+    cfg = task_config("realsr_v1")
+    cfg["diffusion"] = dict(variant="ddpm", steps=1000, beta_start=1.0e-4, beta_end=0.02,
+                            predict_type="epsilon", timestep_respacing=50, sampler="ddim",
+                            eta=0.0, scale_factor=1.0)
+    dpipe = ResShiftPipeline(cfg, dtype=torch.bfloat16)
+    dpipe.load_state_dicts(**v1_sds)
+    steps = dpipe.sched.num_timesteps
+    lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(16)).to(dev) * 2 - 1
+    run = runner(dpipe, lq, 17)
+    reset()
+    t1 = time.perf_counter()
+    out = run("kernel")
+    first_ms = (time.perf_counter() - t1) * 1e3
+    launches["15"] = read_launches(all_kernels, sb)
+    want = expected_launches(cfg, 64, 64, steps=steps)
+    want["C"] = 1  # the chain starts from pure noise: no encode, C in the decode only
+    print(f"  launches in one sample call: {launches['15']} (derived: {want})", flush=True)
+    if launches["15"] != want:
+        raise AssertionError(f"launch counts {launches['15']}, want {want}")
+    if out.shape != (BSZ, 256, 256, 3) or not torch.isfinite(out).all():
+        raise AssertionError(f"bad output {tuple(out.shape)}")
+    ms, times = timed_calls(run, 2)
+    print(f"  DDIM sample: {ms:.1f} ms per call (median of {times}; first call {first_ms:.1f}), "
+          f"{BSZ * 256 * 256 / (ms / 1e3) / 1e6:.4f} Mpx/s, on {card}", flush=True)
+    out_plain = plain_path(run, fa.attention_plain)
+    a, b = latents["kernel"].double(), latents["plain"].double()
+    psnr = 10 * math.log10(b.abs().max().item() ** 2 / max(((a - b) ** 2).mean().item(), 1e-30))
+    psnr_img = 10 * math.log10(4.0 / max(((out - out_plain) ** 2).mean().item(), 1e-30))
+    print(f"  final latent PSNR kernel vs plain: {psnr:.2f} dB (bar 35), image PSNR "
+          f"{psnr_img:.2f} dB (not gated), latent range [{b.min().item():.3f}, "
+          f"{b.max().item():.3f}]", flush=True)
+    if not psnr >= 35.0:
+        raise AssertionError(f"DDPM latent PSNR {psnr:.2f} dB below 35")
+    del dpipe, run, out, out_plain
+
+    # ---------------------------------------------------------------- 16
+    print("phase 16: realsr_v1, 8 x 64x64: sample_time_parallel (Picard) and "
+          "sample_progressive against sample", flush=True)
+    pipe1 = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16)
+    pipe1.load_state_dicts(**v1_sds)
+    steps = pipe1.sched.num_timesteps
+    lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(18)).to(dev) * 2 - 1
+
+    def capture(fn):
+        """fn() with every latent that reaches the decoder kept; returns
+        (result, latents, ms)."""
+        zs, orig = [], pipe1._decode
+        pipe1._decode = lambda vqm, z: zs.append(z.float().clone()) or orig(vqm, z)
+        try:
+            t1 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            return res, zs, (time.perf_counter() - t1) * 1e3
+        finally:
+            pipe1._decode = orig
+
+    def db(x, y, peak=None):
+        x, y = x.double(), y.double()
+        peak = y.abs().max().item() if peak is None else peak
+        return 10 * math.log10(peak ** 2 / max(((x - y) ** 2).mean().item(), 1e-30))
+
+    gen = lambda: torch.Generator(device=dev).manual_seed(19)
+    ref, (z_ref,), ref_ms = capture(lambda: pipe1.sample(lq, gen()))
+    for tag, sweeps in (("16 T", steps), ("16 T//3", steps // 3)):
+        reset()
+        out, (z,), first = capture(lambda: pipe1.sample_time_parallel(lq, gen(), sweeps=sweeps))
+        launches[tag] = read_launches(all_kernels, sb)
+        want = expected_launches(pipe1.config, 64, 64, steps=sweeps)
+        if launches[tag] != want:
+            raise AssertionError(f"sweeps {sweeps}: launch counts {launches[tag]}, want {want}")
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"sweeps {sweeps}: bad output {tuple(out.shape)}")
+        ms = statistics.median(
+            [capture(lambda: pipe1.sample_time_parallel(lq, gen(), sweeps=sweeps))[2]
+             for _ in range(2)])
+        psnr, same = db(z, z_ref), (z == z_ref).float().mean().item()
+        bar = "bar 35" if sweeps == steps else "not gated"
+        print(f"  sweeps {sweeps} (a {steps * BSZ}-tile UNet batch): launches {launches[tag]}; "
+              f"latent PSNR against sample {psnr:.2f} dB ({bar}), {100 * same:.2f}% of latent "
+              f"values bit-equal, image PSNR {db(out, ref, 2.0):.2f} dB; {ms:.1f} ms per call "
+              f"(first {first:.1f})", flush=True)
+        if sweeps == steps and not psnr >= 35.0:
+            raise AssertionError(f"time-parallel at sweeps = T: latent PSNR {psnr:.2f} below 35")
+    seq_ms = statistics.median([capture(lambda: pipe1.sample(lq, gen()))[2] for _ in range(2)])
+    print(f"  sample (sequential): {seq_ms:.1f} ms per call (first {ref_ms:.1f}), on {card}",
+          flush=True)
+    reset()
+    (final, strip), zs, prog_ms = capture(lambda: pipe1.sample_progressive(lq, gen()))
+    launches["16 progressive"] = read_launches(all_kernels, sb)
+    want = expected_launches(pipe1.config, 64, 64)
+    want.update({"C": steps + 2, "D": steps + 1, "D finalize": steps + 1})  # T + 1 decodes
+    if launches["16 progressive"] != want:
+        raise AssertionError(f"progressive: launch counts {launches['16 progressive']}, "
+                             f"want {want}")
+    if strip.shape != (steps, BSZ, 256, 256, 3) or not torch.isfinite(strip).all():
+        raise AssertionError(f"progressive strip {tuple(strip.shape)}")
+    psnr, same = db(zs[0], z_ref), (final == ref).float().mean().item()
+    print(f"  progressive: launches {launches['16 progressive']}; strip {tuple(strip.shape)}; "
+          f"final latent PSNR against sample {psnr:.2f} dB (bar 35), {100 * same:.2f}% of "
+          f"output values bit-equal; {prog_ms:.1f} ms (first call)", flush=True)
+    if not psnr >= 35.0:
+        raise AssertionError(f"progressive final latent PSNR {psnr:.2f} dB below 35")
+    del pipe1, ref, final, strip
 
     print(json.dumps({"kernels": kernel_rows(launches, errs, timed)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -131,7 +131,11 @@ class Kernel:
     own name: csrc/<lib>.cu), with its launch count.
 
     `launches` counts calls that launched the kernel; `variants` splits the
-    count by the label a wrapper passes (e.g. "shift")."""
+    count by the label a wrapper passes (e.g. "shift").  A call launches on
+    `device`, the card its tensors are on: that card is made current for
+    the call (so the entry point's own device queries and attribute
+    settings see it) and the launch goes on that card's current stream,
+    whichever card the calling thread had current."""
 
     def __init__(self, name: str, argtypes: list, lib: str | None = None):
         self.name = name
@@ -145,13 +149,14 @@ class Kernel:
         self.launches = 0
         self.variants = {}
 
-    def __call__(self, *args, variant: str | None = None) -> None:
+    def __call__(self, *args, device: torch.device, variant: str | None = None) -> None:
         if self._fn is None:
             fn = getattr(_library(self.lib), self.name)
             fn.argtypes = self.argtypes + [P]
             fn.restype = I
             self._fn = fn
-        rc = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(device):
+            rc = self._fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{self.name}: CUDA error {rc} at launch")
         self.launches += 1

@@ -13,6 +13,9 @@ for each batch's result and writes its PNGs.  The noise comes from one
 `torch.Generator` on the device, seeded from `--seed`, which each batch
 advances in turn.  Everything runs on CUDA unless `--device cpu` is given.
 
+`--time-parallel SWEEPS` runs an unchopped input's reverse chain as
+Picard sweeps (`ResShiftPipeline.sample_time_parallel`).
+
 Inpainting masks (`--mask-path`, a file or a folder) are read as gray and
 mapped to [-1, 1] (white: the region to fill); each image takes the mask
 of the same stem, else the first mask.  The output is pasted back,
@@ -112,8 +115,13 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
                 mask = np.concatenate([to_model(imread(masks.get(f.stem) or
                                                        next(iter(masks.values())), chn="gray"))
                                        for f, _ in group], axis=0)
-            sr = pipe.sample(lq, generator, None if mask is None else torch.from_numpy(mask),
-                             noise_repeat=args.noise_repeat, tile_bs=args.chop_bs)
+            mask_t = None if mask is None else torch.from_numpy(mask)
+            if getattr(args, "time_parallel", 0) and max(lq.shape[1:3]) <= pipe.chop_size:
+                # the Picard chain: the UNet runs SWEEPS times on a (T*B) batch
+                sr = pipe.sample_time_parallel(lq, generator, mask_t, sweeps=args.time_parallel)
+            else:
+                sr = pipe.sample(lq, generator, mask_t, noise_repeat=args.noise_repeat,
+                                 tile_bs=args.chop_bs)
 
             def write_one(arr, j, f, im, mask):
                 sr01 = from_model(arr[j:j + 1])[0]
@@ -222,6 +230,10 @@ def make_parser() -> argparse.ArgumentParser:
     pi.add_argument("--chop-stride", type=int, default=None)
     pi.add_argument("--bs", type=int, default=1)
     pi.add_argument("--noise-repeat", action="store_true")
+    pi.add_argument("--time-parallel", type=int, default=0, metavar="SWEEPS",
+                    help="run the reverse chain as SWEEPS Picard sweeps over all steps at "
+                         "once (inputs that are not chopped; SWEEPS = steps gives the "
+                         "sequential result)")
     pi.add_argument("--mask-path", default=None, help="inpainting mask (file or folder)")
     pi.add_argument("--mask-back", action="store_true", default=True,
                     help="paste the input back outside the mask (always on, as in the "

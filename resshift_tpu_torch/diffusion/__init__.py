@@ -1,4 +1,5 @@
 from .schedule import Schedule, build_schedule, exponential_sqrt_etas, space_timesteps
-from . import resshift
+from . import ddpm, resshift
 
-__all__ = ["Schedule", "build_schedule", "exponential_sqrt_etas", "space_timesteps", "resshift"]
+__all__ = ["Schedule", "build_schedule", "exponential_sqrt_etas", "space_timesteps", "ddpm",
+           "resshift"]

@@ -4,7 +4,9 @@ Functions over a :class:`~resshift_tpu_torch.diffusion.schedule.Schedule`.
 The reverse chain is a Python loop over t = T-1 .. 0; Gaussian draws come
 from an explicit `torch.Generator`, or are passed in (`noise=`,
 `step_noise=`) so that a test can feed both this port and the JAX package
-the same numbers.
+the same numbers.  `sample_loop_parallel` runs the same chain as Picard
+sweeps over the whole trajectory at once, `sample_loop_progressive` keeps
+every step's sample and x0 prediction.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from .schedule import Schedule
 __all__ = ["scale_input", "predict_xstart_from_eps",
            "predict_xstart_from_eps_scale", "predict_xstart_from_residual",
            "predict_eps_from_xstart", "prior_sample", "p_mean_variance",
-           "p_sample", "sample_loop", "PMeanVariance"]
+           "p_sample", "sample_loop", "sample_loop_parallel", "sample_loop_progressive",
+           "PMeanVariance"]
 
 # model_fn(x_scaled, t_original, **cond) -> model output; t_original is the
 # timestep after mapping through sched.timestep_map (respacing)
@@ -31,7 +34,11 @@ def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     return out.reshape(out.shape + (1,) * (ndim - out.ndim))
 
 
-def _t_vec(t: int, x: torch.Tensor) -> torch.Tensor:
+def _t_vec(t: int | torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """`t` (an int, or a [B] vector on x's device) as a [B] vector; an int
+    is filled on the device, with no copy from the host."""
+    if isinstance(t, torch.Tensor):
+        return t.long().expand(x.shape[0])
     return torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
 
 
@@ -81,10 +88,11 @@ class PMeanVariance(NamedTuple):
     pred_xstart: torch.Tensor
 
 
-def p_mean_variance(sched: Schedule, model_fn: ModelFn, x_t, y, t: int, *,
+def p_mean_variance(sched: Schedule, model_fn: ModelFn, x_t, y, t: int | torch.Tensor, *,
                     clip_denoised: bool = True,
                     model_kwargs: dict[str, Any] | None = None) -> PMeanVariance:
-    """Model posterior p(x_{t-1} | x_t) at respaced step `t`."""
+    """Model posterior p(x_{t-1} | x_t) at respaced step `t` (an int, or a
+    [B] vector: one step per sample)."""
     model_kwargs = model_kwargs or {}
     nd = x_t.ndim
     t_vec = _t_vec(t, x_t)
@@ -153,3 +161,87 @@ def sample_loop(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
                                   model_kwargs=model_kwargs)
             x = _step(out, t, step_noise[i])
     return x
+
+
+def _step_draws(sched: Schedule, z_y, generator, noise, noise_repeat):
+    """The prior draw and the T step draws (T, B, ...), taken from
+    `generator` in `sample_loop`'s order: the prior first, then step by
+    step."""
+    if noise is None:
+        noise = torch.randn(z_y.shape, generator=generator, dtype=torch.float32,
+                            device=z_y.device)
+        if noise_repeat:
+            noise = noise[:1].expand_as(noise)
+    eps = torch.stack([torch.randn(z_y.shape, generator=generator, dtype=torch.float32,
+                                   device=z_y.device) for _ in range(sched.num_timesteps)])
+    if noise_repeat:
+        eps = eps[:, :1].expand_as(eps)
+    return noise, eps
+
+
+def sample_loop_parallel(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
+                         generator: torch.Generator | None = None, *,
+                         sweeps: int | None = None, noise: torch.Tensor | None = None,
+                         step_noise: torch.Tensor | None = None, clip_denoised: bool = True,
+                         model_kwargs: dict[str, Any] | None = None,
+                         noise_repeat: bool = False) -> torch.Tensor:
+    """Time-parallel (Picard) reverse chain; returns the final latent.
+
+    With the per-step draws fixed, the chain x_{j+1} = F_j(x_j) over
+    positions j = 0..T-1 (t = T-1-j) is swept whole: X[j+1] <- F_j(X[j])
+    for every j at once, the denoiser running on a (T*B) batch.  After k
+    sweeps the first k positions are exact, so `sweeps` = T gives
+    `sample_loop`'s result; fewer trade accuracy for fewer denoiser calls
+    (default T // 3).  The draws come as `sample_loop` takes them."""
+    model_kwargs = model_kwargs or {}
+    t_steps, b = sched.num_timesteps, z_y.shape[0]
+    sweeps = max(1, t_steps // 3) if sweeps is None else sweeps
+    if step_noise is None:
+        noise, step_noise = _step_draws(sched, z_y, generator, noise, noise_repeat)
+    elif noise is None:
+        raise ValueError("step_noise needs noise (the prior draw) too")
+    x_t = prior_sample(sched, z_y, noise)
+
+    ts = torch.arange(t_steps - 1, -1, -1, device=z_y.device)
+    t_vec = ts.repeat_interleave(b)
+    tiled = {k: torch.cat([v] * t_steps, dim=0) for k, v in model_kwargs.items()}
+    z_y_tiled = torch.cat([z_y] * t_steps, dim=0)
+    bshape = (t_steps, b) + (1,) * (z_y.ndim - 1)
+    nz = (ts != 0).float().reshape((t_steps,) + (1,) * z_y.ndim)
+    xs = x_t.unsqueeze(0).expand((t_steps + 1,) + x_t.shape)
+    for _ in range(sweeps):
+        out = p_mean_variance(sched, model_fn, xs[:-1].reshape((t_steps * b,) + z_y.shape[1:]),
+                              z_y_tiled, t_vec, clip_denoised=clip_denoised,
+                              model_kwargs=tiled)
+        mean = out.mean.reshape((t_steps,) + z_y.shape)
+        logv = out.log_variance.reshape(bshape)
+        xs = torch.cat([xs[:1], mean + nz * torch.exp(0.5 * logv) * step_noise], dim=0)
+    return xs[-1]
+
+
+def sample_loop_progressive(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
+                            generator: torch.Generator | None = None, *,
+                            noise: torch.Tensor | None = None,
+                            step_noise: torch.Tensor | None = None, clip_denoised: bool = True,
+                            model_kwargs: dict[str, Any] | None = None,
+                            noise_repeat: bool = False):
+    """`sample_loop` that also returns every step's sample and x0
+    prediction, stacked on a leading time axis: (x_0, samples, pred_x0s),
+    the last two (T, B, ...).  The draws come as `sample_loop` takes them."""
+    if noise is None:
+        noise = torch.randn(z_y.shape, generator=generator, dtype=torch.float32,
+                            device=z_y.device)
+    x = prior_sample(sched, z_y, noise)
+    samples, preds = [], []
+    for i, t in enumerate(range(sched.num_timesteps - 1, -1, -1)):
+        if step_noise is None:
+            x, pred = p_sample(sched, model_fn, x, z_y, t, generator,
+                               clip_denoised=clip_denoised, model_kwargs=model_kwargs,
+                               noise_repeat=noise_repeat)
+        else:
+            out = p_mean_variance(sched, model_fn, x, z_y, t, clip_denoised=clip_denoised,
+                                  model_kwargs=model_kwargs)
+            x, pred = _step(out, t, step_noise[i]), out.pred_xstart
+        samples.append(x)
+        preds.append(pred)
+    return x, torch.stack(samples), torch.stack(preds)

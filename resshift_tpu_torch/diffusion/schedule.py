@@ -16,7 +16,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["Schedule", "exponential_sqrt_etas", "space_timesteps", "build_schedule"]
+__all__ = ["Schedule", "exponential_sqrt_etas", "linear_betas", "space_timesteps",
+           "build_schedule"]
 
 
 def exponential_sqrt_etas(steps: int, min_noise_level: float, etas_end: float = 0.99,
@@ -29,6 +30,11 @@ def exponential_sqrt_etas(steps: int, min_noise_level: float, etas_end: float = 
     power_timestep = np.linspace(0.0, 1.0, steps, endpoint=True, dtype=np.float64) ** power
     power_timestep *= steps - 1
     return np.power(base, power_timestep) * etas_start
+
+
+def linear_betas(steps: int, beta_start: float, beta_end: float) -> np.ndarray:
+    """The classic DDPM betas, linear in sqrt(beta)."""
+    return np.linspace(beta_start**0.5, beta_end**0.5, steps, dtype=np.float64) ** 2
 
 
 def space_timesteps(num_timesteps: int, section_counts: int | str | Sequence[int]) -> list[int]:

@@ -121,10 +121,11 @@ def _kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win, soft
     ptrs = [x.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(), y.data_ptr()]
     mode = SOFTMAX_MODES.index(softmax)
     if route == "tc":
-        ATTN_VARIANTS_TC(*ptrs, mode, bsz, t, c, num_heads, n_win, nwb, variant=softmax)
+        ATTN_VARIANTS_TC(*ptrs, mode, bsz, t, c, num_heads, n_win, nwb, device=x.device,
+                         variant=softmax)
     else:
         ATTN_VARIANTS(*ptrs, _ext.dtype_code(dt), mode, bsz, t, c, num_heads, n_win, nwb,
-                      variant=softmax)
+                      device=x.device, variant=softmax)
     return y
 
 

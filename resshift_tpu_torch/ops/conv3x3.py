@@ -111,10 +111,10 @@ def _kernel(x, w, rows) -> torch.Tensor:
         if vec:
             x, wt = _ext.aligned16(x), _ext.aligned16(wt)
         CONV3X3_TC(x.data_ptr(), wt.data_ptr(), y.data_ptr(), bsz, h, wd, c, co, rows, int(vec),
-                   variant="vec" if vec else "elem")
+                   device=x.device, variant="vec" if vec else "elem")
     else:
         CONV3X3(x.data_ptr(), wt.data_ptr(), y.data_ptr(), _ext.dtype_code(dt), bsz, h, wd, c,
-                co, rows)
+                co, rows, device=x.device)
     return y
 
 

@@ -54,8 +54,9 @@ def flash_attention_1h(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
     q, k, v = (_ext.aligned16(t.to(q.dtype).contiguous()) for t in (q, k, v))
     out = torch.empty_like(q)
     if q.dtype == torch.bfloat16:
-        FLASH_ATTN_1H_TC(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n)
+        FLASH_ATTN_1H_TC(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n,
+                         device=q.device)
     else:  # float32; dtype_code raises for any other type
         FLASH_ATTN_1H(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      _ext.dtype_code(q.dtype), b, n, c)
+                      _ext.dtype_code(q.dtype), b, n, c, device=q.device)
     return out

@@ -45,5 +45,5 @@ def shift_tokens(x: torch.Tensor, h: int, w: int, ws: int, shift: int,
     y = torch.empty_like(x)
     b, t, c = x.shape
     SHIFT_TOKENS(x.data_ptr(), y.data_ptr(), x.element_size(), b, t, c, h, w, ws, shift,
-                 int(inverse), variant="inv" if inverse else "fwd")
+                 int(inverse), device=x.device, variant="inv" if inverse else "fwd")
     return y

@@ -230,10 +230,10 @@ def _attn_kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win,
     variant = "shift" if geom else "plain"
     if route == "tc":
         SWIN_WINDOW_ATTN_TC(*ptrs, bsz, t, c, num_heads, n_win, nwb, ws, h, wd, shift,
-                            variant=variant)
+                            device=x.device, variant=variant)
     else:
         SWIN_WINDOW_ATTN(*ptrs, _ext.dtype_code(dt), bsz, t, c, num_heads, n_win, nwb, ws, h, wd,
-                         shift, variant=variant)
+                         shift, device=x.device, variant=variant)
     return y, stats[0], stats[1]
 
 
@@ -259,10 +259,11 @@ def _mlp_kernel(x, w, b, w1, b1, w2, b2, geom):
             part[1].data_ptr(), stats[0].data_ptr(), stats[1].data_ptr()]
     variant = "unshift" if geom else "plain"
     if tc:
-        SWIN_MLP_TC(*ptrs, bsz, t, c, hidden, ws, h, wd, shift, variant=variant)
+        SWIN_MLP_TC(*ptrs, bsz, t, c, hidden, ws, h, wd, shift, device=x.device,
+                    variant=variant)
     else:  # float32; dtype_code raises for any other type
         SWIN_MLP(*ptrs, _ext.dtype_code(dt), bsz, t, c, hidden, ws, h, wd, shift,
-                 variant=variant)
+                 device=x.device, variant=variant)
     return y, stats[0], stats[1]
 
 

@@ -106,7 +106,7 @@ def _stats(x: torch.Tensor, scale, bias, num_groups: int, eps: float,
     buf = torch.empty(2 * n + (ws + extra + 3) // 4, dtype=torch.float32, device=x.device)
     base = buf.data_ptr()
     GN_STATS(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), base + 8 * n, base, base + 4 * n,
-             code, bsz, c, hw, g, eps)
+             code, bsz, c, hw, g, eps, device=x.device)
     return buf, base + 8 * n + ws
 
 
@@ -155,10 +155,10 @@ def _kernel(route: str, x, gn_scale, gn_bias, weight, bias, num_groups: int,
     y = torch.empty(bsz, co, h, wd, dtype=dt, device=x.device)
     if route == "tc":
         GN_SILU_CONV3X3_TC(x.data_ptr(), w, b, wt.data_ptr(), cb.data_ptr(), y.data_ptr(), bsz,
-                           c, h, wd, co)
+                           c, h, wd, co, device=x.device)
     else:
         GN_SILU_CONV3X3(x.data_ptr(), w, b, wt.data_ptr(), cb.data_ptr(), y.data_ptr(), ws,
-                        _ext.dtype_code(dt), bsz, c, h, wd, co)
+                        _ext.dtype_code(dt), bsz, c, h, wd, co, device=x.device)
     return y
 
 

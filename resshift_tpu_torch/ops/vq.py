@@ -47,6 +47,6 @@ def nearest_codebook_indices(flat: torch.Tensor, emb: torch.Tensor) -> torch.Ten
     idx = torch.empty(m, dtype=torch.int64, device=flat.device)
     if m:
         flat, emb = flat.contiguous(), emb.contiguous()
-        VQ_NEAREST(flat.data_ptr(), emb.data_ptr(), idx.data_ptr(), m, k, d)
-        VQ_FINALIZE(idx.data_ptr(), m)
+        VQ_NEAREST(flat.data_ptr(), emb.data_ptr(), idx.data_ptr(), m, k, d, device=flat.device)
+        VQ_FINALIZE(idx.data_ptr(), m, device=flat.device)
     return idx

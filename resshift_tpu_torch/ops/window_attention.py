@@ -104,9 +104,9 @@ def _kernel(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: int) -> torch.Te
     y = torch.empty_like(xw)
     ptrs = [xw.data_ptr(), *(a.data_ptr() for a in args), bm.data_ptr(), y.data_ptr()]
     if route == "tc":
-        WINDOW_ATTN_TC(*ptrs, m, n, c, num_heads, nw)
+        WINDOW_ATTN_TC(*ptrs, m, n, c, num_heads, nw, device=xw.device)
     else:
-        WINDOW_ATTN(*ptrs, _ext.dtype_code(dt), m, n, c, num_heads, nw)
+        WINDOW_ATTN(*ptrs, _ext.dtype_code(dt), m, n, c, num_heads, nw, device=xw.device)
     return y
 
 

@@ -165,10 +165,10 @@ def _kernel(x, w, b) -> torch.Tensor:
         if vec:
             x, u = _ext.aligned16(x), _ext.aligned16(u)
         WINOGRAD_CONV3X3_TC(x.data_ptr(), u.data_ptr(), bp, y.data_ptr(), bsz, h, wd, c, co,
-                            int(vec), variant="vec" if vec else "elem")
+                            int(vec), device=x.device, variant="vec" if vec else "elem")
     else:
         WINOGRAD_CONV3X3(x.data_ptr(), u.data_ptr(), bp, y.data_ptr(), _ext.dtype_code(dt), bsz,
-                         h, wd, c, co)
+                         h, wd, c, co, device=x.device)
     return y
 
 

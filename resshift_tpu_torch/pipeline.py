@@ -15,6 +15,14 @@ overlapping tile grid, their masks (inpainting) through the same grid.
   * A config's `model.use_pallas: true` launches kernel F in the UNet head
     (the JAX package's pin) and `autoencoder.use_pallas: true` in the VQGAN
     decoder tail (a key of this package only).
+  * `diffusion.variant: ddpm` swaps the residual-shifting chain for classic
+    DDPM (`sampler: ancestral`) or DDIM (`sampler: ddim`, with `eta`) from
+    pure noise at the latent shape, the LQ image conditioning the UNet
+    through its kwargs; padding, chopping and the CLI are the same.
+    `noise_repeat` raises there (the JAX package ignores it).
+  * `sample_time_parallel` (Picard sweeps over the whole chain) and
+    `sample_progressive` (every step's x0 prediction, decoded) take inputs
+    that fit one tile.
 
 The pipeline runs on CUDA unless the caller passes `device="cpu"`; without
 CUDA and without that argument it raises.  Images are NHWC float32 in
@@ -31,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .config import task_config
+from .diffusion import ddpm
 from .diffusion import resshift as rs
 from .diffusion.schedule import build_schedule
 from .models.layers import GroupNorm32
@@ -89,17 +98,30 @@ class ResShiftPipeline:
         self.dtype = dtype
         self.sf = int(config["sf"])
         d = config["diffusion"]
-        if d.get("variant", "resshift") != "resshift":
-            raise NotImplementedError("this port covers the residual-shifting chain only")
-        self.sched = build_schedule(
-            schedule_name=d.get("schedule_name", "exponential"), steps=d["steps"],
-            min_noise_level=d["min_noise_level"], etas_end=d.get("etas_end", 0.99),
-            kappa=d.get("kappa", 1.0), power=d.get("power", 0.3),
-            predict_type=d.get("predict_type", "xstart"),
-            timestep_respacing=d.get("timestep_respacing"),
-            normalize_input=d.get("normalize_input", True),
-            latent_flag=d.get("latent_flag", True),
-            scale_factor=float(d.get("scale_factor", 1.0)), sf=self.sf, device=self.device)
+        self.variant = d.get("variant", "resshift")
+        if self.variant == "ddpm":
+            self.ddpm_sampler = d.get("sampler", "ancestral")
+            if self.ddpm_sampler not in ("ancestral", "ddim"):
+                raise ValueError(f"unknown diffusion.sampler '{self.ddpm_sampler}'")
+            self.ddpm_eta = float(d.get("eta", 0.0))
+            self.sched = ddpm.build_ddpm_schedule(
+                steps=d.get("steps", 1000), beta_start=d.get("beta_start", 1e-4),
+                beta_end=d.get("beta_end", 0.02),
+                predict_xstart=d.get("predict_type", "epsilon") == "xstart",
+                timestep_respacing=d.get("timestep_respacing"),
+                scale_factor=float(d.get("scale_factor", 1.0)), sf=self.sf, device=self.device)
+        elif self.variant == "resshift":
+            self.sched = build_schedule(
+                schedule_name=d.get("schedule_name", "exponential"), steps=d["steps"],
+                min_noise_level=d["min_noise_level"], etas_end=d.get("etas_end", 0.99),
+                kappa=d.get("kappa", 1.0), power=d.get("power", 0.3),
+                predict_type=d.get("predict_type", "xstart"),
+                timestep_respacing=d.get("timestep_respacing"),
+                normalize_input=d.get("normalize_input", True),
+                latent_flag=d.get("latent_flag", True),
+                scale_factor=float(d.get("scale_factor", 1.0)), sf=self.sf, device=self.device)
+        else:
+            raise ValueError(f"unknown diffusion.variant '{self.variant}'")
         m = {k: v for k, v in config["model"].items() if k not in ("dims", "use_fp16", "ckpt_path")}
         self.unet = UNetModelSwin(dtype=dtype, **m).to(self.device).eval()
         self.cond_lq = m.get("cond_lq", True)
@@ -111,8 +133,8 @@ class ResShiftPipeline:
         inf = config.get("inference", {})
         self.padding_offset = int(inf.get("padding_offset", m.get("lq_size", 64)))
         # the LQ side whose latent the UNet takes: latent = LQ * sf / f
-        f = 1 if ae is None else 2 ** (len(ae["ddconfig"]["ch_mult"]) - 1)
-        need = self.unet.size_multiple * f
+        self.f = 1 if ae is None else 2 ** (len(ae["ddconfig"]["ch_mult"]) - 1)
+        need = self.unet.size_multiple * self.f
         self.lq_multiple = need // math.gcd(need, self.sf)
         self.chop_size = int(inf.get("chop_size", 512))
         self.chop_stride = int(inf.get("chop_stride", 448))
@@ -199,14 +221,32 @@ class ResShiftPipeline:
             return {"lq_feat": unet(None, None, lq=lq, mask=mask, features_only=True)}
         return {"lq": lq} if mask is None else {"lq": lq, "mask": mask}
 
+    def _ddpm_chain(self, unet, lq, generator, model_kwargs, noise, step_noise):
+        """The DDPM or DDIM chain from pure noise at the latent shape."""
+        b, h, w, _ = lq.shape
+        shape = (b, h * self.sf // self.f, w * self.sf // self.f,
+                 self.config["model"].get("in_channels", 3))
+        kw = dict(noise=noise, step_noise=step_noise, clip_denoised=self.vq is None,
+                  model_kwargs=model_kwargs, device=self.device)
+        if self.ddpm_sampler == "ddim":
+            return ddpm.ddim_sample_loop(self.sched, unet, shape, generator, eta=self.ddpm_eta,
+                                         **kw)
+        return ddpm.p_sample_loop(self.sched, unet, shape, generator, **kw)
+
     @torch.no_grad()
     def _sample_tile(self, lq: torch.Tensor, generator: torch.Generator | None, mask=None,
                      noise_repeat: bool = False, noise: torch.Tensor | None = None,
                      step_noise: torch.Tensor | None = None) -> torch.Tensor:
         """One (padded) tile batch.  `noise` / `step_noise` fix the Gaussian
-        draws as `rs.sample_loop` takes them; otherwise they come from
-        `generator`, the prior draw first."""
+        draws as the chain takes them; otherwise they come from
+        `generator`, the prior (or x_T) draw first."""
         unet, vq = self._compute_params()
+        if self.variant == "ddpm":
+            if noise_repeat:
+                raise ValueError("noise_repeat is not defined for diffusion.variant ddpm")
+            z0 = self._ddpm_chain(unet, lq, generator, self._cond_kwargs(unet, lq, mask), noise,
+                                  step_noise)
+            return self._decode(vq, z0).clamp(-1.0, 1.0)
         z_y = self._encode(vq, lq)
         if noise is None:
             noise = torch.randn(z_y.shape, generator=generator, dtype=torch.float32,
@@ -219,12 +259,11 @@ class ResShiftPipeline:
                             noise_repeat=noise_repeat, step_noise=step_noise)
         return self._decode(vq, z0).clamp(-1.0, 1.0)
 
-    def _sample_padded(self, lq, generator, mask, noise_repeat, chop_size, chop_stride,
-                       tile_bs):
-        """Pad -> (maybe tile) -> sample -> crop.  A side longer than the
-        chop size is cut into chop-sized tiles; a shorter one stays whole
-        and is padded on to a multiple of `lq_multiple`."""
-        b, h, w, c = lq.shape
+    def _pad(self, lq, mask, chop_size):
+        """Reflect-pad `lq` (and `mask`) to a multiple of the padding offset;
+        a side that stays within `chop_size` (not tiled) on to a multiple of
+        `lq_multiple`.  Returns the padded pair."""
+        _, h, w, _ = lq.shape
         offset, mult = self.padding_offset, self.lq_multiple
 
         def padded(n):
@@ -242,8 +281,16 @@ class ResShiftPipeline:
                               min(hp - t.shape[2], t.shape[2] - 1)), mode="reflect")
             return t.permute(0, 2, 3, 1)
 
-        lq = pad(lq)
-        mask = None if mask is None else pad(mask)
+        return pad(lq), None if mask is None else pad(mask)
+
+    def _sample_padded(self, lq, generator, mask, noise_repeat, chop_size, chop_stride,
+                       tile_bs):
+        """Pad -> (maybe tile) -> sample -> crop.  A side longer than the
+        chop size is cut into chop-sized tiles; a shorter one stays whole
+        and is padded on to a multiple of `lq_multiple`."""
+        b, h, w, c = lq.shape
+        lq, mask = self._pad(lq, mask, chop_size)
+        hp, wp = lq.shape[1:3]
         if hp <= chop_size and wp <= chop_size:
             out = self._sample_tile(lq, generator, mask, noise_repeat)
         else:
@@ -260,6 +307,56 @@ class ResShiftPipeline:
                                               noise_repeat))
             out = grid.gather(torch.cat(outs, dim=0), b)
         return out[:, :h * self.sf, :w * self.sf, :]
+
+    def _one_tile(self, lq, generator, mask):
+        """The inputs of `sample_time_parallel` and `sample_progressive`: on
+        the device, padded as `sample` pads an untiled input; refused where
+        `sample` would chop them.  Returns (lq, mask, generator, crop)."""
+        if self.variant != "resshift":
+            raise NotImplementedError("this sampler runs the residual-shifting chain only")
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        lq = lq.to(self.device, torch.float32)
+        mask = None if mask is None else mask.to(self.device, torch.float32)
+        _, h, w, _ = lq.shape
+        lq, mask = self._pad(lq, mask, self.chop_size)
+        if max(lq.shape[1:3]) > self.chop_size:
+            raise ValueError(f"a {h}x{w} input is chopped (chop size {self.chop_size}); this "
+                             f"sampler takes one tile")
+        return lq, mask, generator, (slice(None), slice(0, h * self.sf), slice(0, w * self.sf))
+
+    @torch.no_grad()
+    def sample_time_parallel(self, lq: torch.Tensor, generator: torch.Generator | None = None,
+                             mask: torch.Tensor | None = None, *,
+                             sweeps: int | None = None) -> torch.Tensor:
+        """`sample` with the reverse chain run as Picard sweeps
+        (`rs.sample_loop_parallel`): the UNet runs `sweeps` times on a
+        (T*B) batch instead of T times on B.  The draws are taken as
+        `sample` takes them, so `sweeps` = T gives `sample`'s result with
+        the same seed; the default is T // 3.  The input must fit one tile."""
+        lq, mask, generator, crop = self._one_tile(lq, generator, mask)
+        unet, vq = self._compute_params()
+        z_y = self._encode(vq, lq)
+        z0 = rs.sample_loop_parallel(self.sched, unet, z_y, generator, sweeps=sweeps,
+                                     clip_denoised=vq is None,
+                                     model_kwargs=self._cond_kwargs(unet, lq, mask))
+        return self._decode(vq, z0).clamp(-1.0, 1.0)[crop]
+
+    @torch.no_grad()
+    def sample_progressive(self, lq: torch.Tensor, generator: torch.Generator | None = None,
+                           mask: torch.Tensor | None = None):
+        """`sample` that also returns the strip of every step's x0
+        prediction, decoded and clamped: (final (B, H*sf, W*sf, C), strip
+        (T, B, H*sf, W*sf, C)).  The input must fit one tile."""
+        lq, mask, generator, crop = self._one_tile(lq, generator, mask)
+        unet, vq = self._compute_params()
+        z_y = self._encode(vq, lq)
+        z0, _, preds = rs.sample_loop_progressive(
+            self.sched, unet, z_y, generator, clip_denoised=vq is None,
+            model_kwargs=self._cond_kwargs(unet, lq, mask))
+        final = self._decode(vq, z0).clamp(-1.0, 1.0)[crop]
+        strip = torch.stack([self._decode(vq, z).clamp(-1.0, 1.0)[crop] for z in preds])
+        return final, strip
 
     @torch.no_grad()
     def sample(self, lq: torch.Tensor, generator: torch.Generator | None = None,

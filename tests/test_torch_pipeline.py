@@ -277,9 +277,13 @@ def test_unchopped_wide_sample_matches_jax(monkeypatch, steps, min_noise_level):
 # ------------------------------------------------------------- hygiene
 
 def test_port_imports_no_jax_flax_yaml_or_jax_package():
+    # every module, the serving layer, DDPM and the load test among them
     code = ("import sys, pkgutil, importlib, resshift_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'resshift_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "need = ['resshift_tpu_torch.' + m for m in ('serve', 'utils.observability', "
+            "'diffusion.ddpm', 'tools.serve_loadtest')]\n"
+            "assert all(m in sys.modules for m in need), need\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'yaml', 'resshift_tpu')]\n"
             "print(bad)\n"
