@@ -75,6 +75,10 @@ same dtype (with the bias for K10, without for P1) and K10's U transform;
 P2, all five softmaxes, at (8, 4096, 192), in bf16 (the tensor-core kernel
 attn_variants_tc) and f32 (the FMA kernel attn_variants), each call checked
 for its route, each mode timed by events and by the profiler's device time;
+and the backward passes (`check_grads`): A and B (both variants) at (8,
+4096, 192) and F at the UNet head and the f4 tail, in bf16 and f32, their
+gradients against the plain versions', E's (its kernel, inverted) bit for
+bit;
  12. the four tools `python -m resshift_tpu_torch.tools.<tool>` in
      subprocesses (profile_unet, profile_winograd on all nine conv families
      of its census, profile_conv, profile_attn_variants; profile_unet's K9
@@ -105,7 +109,25 @@ for its route, each mode timed by events and by the profiler's device time;
      gated), `sample_progressive`'s final output against `sample`'s (>= 35
      dB) and its strip's shape; launch counts (A and B: sweeps x one step's
      count), ms per call at each sweep count;
-then print the `kernels` JSON line and, last, the result line.
+ 17. realsr_v1 training at full width (configs/realsr_swinunet_realesrgan256
+     .yaml as a dict, `realsr_train_config`: the card's machine has no
+     PyYAML), seeded random weights, bf16 compute on f32 masters, batch 64
+     in microbatches of 8, GT 256, on 96 seeded synthetic 320x320 PNGs:
+     (a) `Trainer.train(stop_iter=3)` with the RealESRGAN degradation, image
+     grids at iteration 2 and validation (EMA weights, two 64 -> 256 pairs)
+     at 3: loss and grad_norm finite and > 0, the lr of each step, every
+     UNet parameter with a nonzero gradient, C launched 16 times a step and
+     A, B, D, E, F none, validation's launches as `expected_launches`
+     derives them, ms per iteration (the median of iterations 2-3: loader,
+     degrader, step), images/s, peak max_memory_allocated; (b) on paired
+     `base` data with `torch.use_deterministic_algorithms(True)`: 3
+     iterations straight against 2 + save + resume + 1, params, EMA and
+     moments bit-equal; (c) one microbatch's gradient with A and B (their
+     autograd Functions, `use_pallas` unset) against the plain composition
+     (`use_pallas: false`): relative L2 <= 1e-3 in f32, the bf16 figure
+     printed;
+then print the `kernels` JSON line (each kernel's `backward` and its phase-2
+backward error among its keys) and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
 
@@ -819,6 +841,331 @@ def check_attn_variants(dev):
     return errs, timed
 
 
+def check_grads(dev):
+    """Phase 2, the kernels' backward passes, in bf16 and f32: A (plain and
+    shifted at a 64x64 map) and B (plain and unshifting) at (8, 4096, 192),
+    F at the UNet head (f32) and the f4 decoder tail (bf16): the gradients of
+    every input through the wrapper (the kernel's forward, the plain
+    version's gradient recomputed by `_ext.Recompute`) against the plain
+    version's under autograd, of a fixed random weighting of every output,
+    within phase 2's band of the largest gradient (the two differ only where
+    the plain backward's scatter-adds sum in another order), with the share
+    of bit-equal values; E at the 192x256 latent: its backward launches E
+    inverse and equals the plain gather's gradient bit for bit.  Returns the
+    largest relative error per kernel and dtype."""
+    import torch
+
+    from resshift_tpu_torch.models.swin import shifted_window_mask
+    from resshift_tpu_torch.ops import shift as shift_ops, swin_block as sb, tail
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    band = {torch.bfloat16: 2 ** -6, torch.float32: 1e-4}
+    errs = {}
+
+    def compare(name, dt, fn, plain, ins, counter=None, launches=0):
+        """The gradients of sum(out * r) through fn and through plain."""
+        ins = [t.detach().requires_grad_(True) if t.is_floating_point() else t for t in ins]
+        before = counter.launches if counter is not None else 0
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        rs = [rn(*o.shape) for o in outs]
+        wanted = [t for t in ins if t.requires_grad]
+        got = torch.autograd.grad(sum((o.float() * r).sum() for o, r in zip(outs, rs)), wanted)
+        if counter is not None and counter.launches - before != launches:
+            raise AssertionError(f"{name}: {counter.name} launched "
+                                 f"{counter.launches - before} times, want {launches}")
+        pouts = plain(*ins)
+        pouts = pouts if isinstance(pouts, tuple) else (pouts,)
+        want = torch.autograd.grad(sum((o.float() * r).sum() for o, r in zip(pouts, rs)), wanted)
+        worst, same, total = 0.0, 0, 0
+        for a, b in zip(got, want):
+            err = (a.float() - b.float()).abs().max().item() / max(b.float().abs().max().item(),
+                                                                  1e-30)
+            worst = max(worst, err)
+            same += (a == b).sum().item()
+            total += b.numel()
+        tag = f"{name} {'bf16' if dt == torch.bfloat16 else 'f32'}"
+        print(f"  backward {tag}: {len(got)} gradients, max error {worst:.3e} of the largest "
+              f"(band {band[dt]:.3e}), {100 * same / total:.2f}% bit-equal", flush=True)
+        if not worst <= band[dt]:
+            raise AssertionError(f"backward {tag}: error {worst} above {band[dt]}")
+        errs[tag] = max(errs.get(tag, 0.0), worst)
+        return same == total
+
+    nh, n, c, hidden, bsz, side, ws = NH, N, C, HIDDEN, BSZ, 64, 8
+    for dt in (torch.bfloat16, torch.float32):
+        x = rn(bsz, side * side, c).to(dt)
+        wa, ba = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c))
+        wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+               (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+        bm = 0.02 * rn(1, nh, n, n)
+        a_tc = sb.SWIN_WINDOW_ATTN_TC if dt == torch.bfloat16 else sb.SWIN_WINDOW_ATTN
+        compare("A", dt, lambda *a: sb.norm_attn_residual_stats(*a, nh, n),
+                lambda *a: sb.norm_attn_residual_stats_plain(*a, nh, n),
+                [x, wa, ba, *wts, bm], a_tc, 1)
+        bms = bm + torch.as_tensor(shifted_window_mask(side, side, ws, 4), device=dev)[:, None]
+        geo = (side, side, ws, 4)
+        compare("A shifted", dt, lambda *a: sb.shift_attn_residual_stats(*a, nh, n, *geo),
+                lambda *a: sb.shift_attn_residual_stats_plain(*a, nh, n, *geo),
+                [x, wa, ba, *wts, bms], a_tc, 1)
+        mlp = [(rn(c, hidden) / c ** 0.5).to(dt), (0.1 * rn(hidden)).to(dt),
+               (rn(hidden, c) / hidden ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+        b_tc = sb.SWIN_MLP_TC if dt == torch.bfloat16 else sb.SWIN_MLP
+        compare("B", dt, sb.norm_mlp_residual_stats, sb.norm_mlp_residual_stats_plain,
+                [x, wa, ba, *mlp], b_tc, 1)
+        compare("B unshifting", dt, lambda *a: sb.mlp_unshift_residual_stats(*a, *geo),
+                lambda *a: sb.mlp_unshift_residual_stats_plain(*a, *geo),
+                [x, wa, ba, *mlp], b_tc, 1)
+        h, w = WIDE_LATENTS[0]
+        xe = rn(1, h * w, c).to(dt)
+        for inverse in (False, True):
+            if not compare(f"E inverse={inverse}", dt,
+                           lambda t: shift_ops.shift_tokens(t, h, w, ws, 4, inverse),
+                           lambda t: shift_ops.shift_tokens_plain(t, h, w, ws, 4, inverse),
+                           [xe], shift_ops.SHIFT_TOKENS, 2):
+                raise AssertionError(f"E's backward differs from the gather's gradient ({dt})")
+    for name, b, c, h, w, co, tag in TAIL_SHAPES[0:3:2]:  # the UNet head (f32), the f4 tail
+        dt = torch.float32 if tag == "f32" else torch.bfloat16
+        eps = 1e-5 if "head" in name else 1e-6
+        ins = [(1.5 * rn(b, c, h, w) + 0.3).to(dt), 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c),
+               (rn(co, c, 3, 3) / (9 * c) ** 0.5).to(dt), (0.1 * rn(co)).to(dt)]
+        route = tail.tail_route("cuda", dt, c, co)
+        kern = tail.GN_SILU_CONV3X3_TC if route == "tc" else tail.GN_SILU_CONV3X3
+        plain = lambda x, s, gb, wt, bi: tail.gn_silu_conv3x3_plain(
+            x, *tail.group_norm_fold(x, s, gb, eps=eps), wt, bi)
+        compare(f"F {name}", dt, lambda *a: tail.gn_silu_conv3x3(*a, eps=eps, use_pallas=True),
+                plain, ins, kern, 1)
+    return errs
+
+
+def realsr_train_config(hq_dirs: list, val_lq: str, val_gt: str) -> dict:
+    """configs/realsr_swinunet_realesrgan256.yaml as `load_yaml_config` gives
+    it (the card's machine has no PyYAML), with the data paths replaced by
+    `hq_dirs`, `val_lq` and `val_gt` and no VQGAN checkpoint (random
+    weights): realsr_v1 with the RealESRGAN degradation, batch 64 in
+    microbatches of 8, GT crops of 256."""
+    from resshift_tpu_torch.config import task_config
+
+    cfg = task_config("realsr_v1")
+    cfg["model"]["ckpt_path"] = None
+    cfg["autoencoder"]["ckpt_path"] = None
+    cfg["degradation"] = dict(
+        sf=4, resize_prob=[0.2, 0.7, 0.1], resize_range=[0.15, 1.5], gaussian_noise_prob=0.5,
+        noise_range=[1, 30], poisson_scale_range=[0.05, 3.0], gray_noise_prob=0.4,
+        jpeg_range=[30, 95], second_order_prob=0.5, second_blur_prob=0.8,
+        resize_prob2=[0.3, 0.4, 0.3], resize_range2=[0.3, 1.2], gaussian_noise_prob2=0.5,
+        noise_range2=[1, 25], poisson_scale_range2=[0.05, 2.5], gray_noise_prob2=0.4,
+        jpeg_range2=[30, 95], gt_size=256, resize_back=False, use_sharp=False)
+    cfg["data"] = dict(
+        train=dict(type="realesrgan", params=dict(
+            dir_paths=list(hq_dirs), txt_file_path=[], im_exts=["JPEG"], blur_kernel_size=21,
+            sinc_prob=0.1, blur_sigma=[0.2, 3.0], betag_range=[0.5, 4.0], betap_range=[1, 2.0],
+            blur_kernel_size2=15, sinc_prob2=0.1, blur_sigma2=[0.2, 1.5],
+            betag_range2=[0.5, 4.0], betap_range2=[1, 2.0], final_sinc_prob=0.8, gt_size=256,
+            crop_pad_size=300, use_hflip=True, use_rot=False, rescale_gt=True)),
+        val=dict(type="base", params=dict(dir_path=val_lq, extra_dir_path=val_gt)))
+    # as PyYAML reads them: 5e-5 (no dot) is a string, which TrainConfig converts
+    cfg["train"] = dict(lr="5e-5", lr_min="2e-5", lr_schedule=None, warmup_iterations=5000,
+                        batch=[64, 8], microbatch=8, num_workers=4, weight_decay=0,
+                        ema_rate=0.999, iterations=300000, save_freq=10000,
+                        log_freq=[200, 2000], val_freq=10000, seed=123456)
+    return cfg
+
+
+def write_train_data(root: Path, n_hq: int, n_val: int, n_pairs: int) -> dict:
+    """Seeded synthetic PNGs (smooth random fields, written by the port's
+    codec): `n_hq` 320x320 HQ images, `n_val` 64 -> 256 validation pairs and
+    `n_pairs` such pairs for paired training.  Returns the folders."""
+    import numpy as np
+
+    from resshift_tpu_torch.ops.resize import resize_np
+    from resshift_tpu_torch.utils.image_io import imwrite
+
+    rng = np.random.default_rng(31)
+    dirs = {k: root / k for k in ("hq", "val_lq", "val_gt", "pair_lq", "pair_gt")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+
+    def field(side):
+        return np.clip(resize_np(rng.uniform(0, 1, (side // 8, side // 8, 3)), (side, side),
+                                 "bilinear") + rng.normal(0, 0.03, (side, side, 3)), 0, 1)
+
+    for i in range(n_hq):
+        imwrite(field(320), dirs["hq"] / f"{i:03d}.png")
+    for (lq_dir, gt_dir), n in (((dirs["val_lq"], dirs["val_gt"]), n_val),
+                                ((dirs["pair_lq"], dirs["pair_gt"]), n_pairs)):
+        for i in range(n):
+            gt = field(256)
+            imwrite(gt, gt_dir / f"{i:03d}.png")
+            imwrite(resize_np(gt, (64, 64), "bicubic_matlab"), lq_dir / f"{i:03d}.png")
+    return dirs
+
+
+def train_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict):
+    """Phase 17: realsr_v1 training at full width (see the module docstring).
+    Returns its figures."""
+    import torch
+
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.pipeline import ResShiftPipeline
+    from resshift_tpu_torch.train_loop import Trainer
+    from resshift_tpu_torch.trainer import TrainConfig, TrainStep
+
+    calls: dict[str, list] = {}
+
+    def counted(fn, key):
+        """fn with its launches kept, one entry a call, under calls[key]."""
+        def wrapped(*a, **k):
+            reset()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            calls.setdefault(key, []).append(read_launches(all_kernels, sb))
+            return out
+        return wrapped
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    t1 = time.perf_counter()
+    dirs = write_train_data(root, 96, 2, 32)
+    print(f"  data: 96 HQ 320x320 PNGs, 2 + 32 pairs 64 -> 256, written in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    # ------------------------------------------------------------ 17(a)
+    cfg = realsr_train_config([str(dirs["hq"])], str(dirs["val_lq"]), str(dirs["val_gt"]))
+    cfg["train"].update(log_freq=[1, 2], val_freq=3)  # grids at 2, validation at 3
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, save_dir=str(root / "run_a"), dtype=torch.bfloat16, seed=0)
+    tr.train_step = counted(tr.train_step, "17 steps")
+    tr.log_train_images = counted(tr.log_train_images, "17 grids")
+    tr.validate = counted(tr.validate, "17 validate")
+    tr.train(stop_iter=3)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log_text = (root / "run_a" / "train_log.jsonl").read_text()
+    log = [json.loads(ln) for ln in log_text.splitlines()]
+    steps = [m for m in log if "loss" in m]
+    for m in steps:
+        print(f"  iteration {m['iter']}: loss {m['loss']:.5f}, grad_norm {m['grad_norm']:.4f}, "
+              f"lr {m['lr']:.4e}, loader {m['loader_ms']:.1f} ms, degrader "
+              f"{m['degrade_ms']:.1f} ms, step {m['step_ms']:.1f} ms", flush=True)
+        if not (math.isfinite(m["loss"]) and m["loss"] > 0 and math.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise AssertionError(f"iteration {m['iter']}: loss or grad_norm not finite and > 0")
+    if [m["iter"] for m in steps] != [1, 2, 3]:
+        raise AssertionError(f"logged iterations {[m['iter'] for m in steps]}")
+    zero = [n for n, p in tr.step_fn.named
+            if p.grad is None or not p.grad.abs().max().item() > 0]
+    print(f"  UNet parameters with a nonzero gradient: {len(tr.step_fn.named) - len(zero)} of "
+          f"{len(tr.step_fn.named)}", flush=True)
+    if zero:
+        raise AssertionError(f"{len(zero)} UNet parameters without a gradient, e.g. {zero[:3]}")
+    mb = tr.tcfg.microbatch
+    per_step = {k: 0 for k in calls["17 steps"][0]}
+    per_step["C"] = 2 * (tr.batch // mb)  # two encodes a microbatch
+    print(f"  launches a step: {calls['17 steps']}", flush=True)
+    if any(got != per_step for got in calls["17 steps"]):
+        raise AssertionError(f"step launches {calls['17 steps']}, want {per_step} each")
+    launches["17 step"] = calls["17 steps"][0]
+    # validation: the progressive strip of the first pair, then one sample
+    # call on both pairs (one shape group)
+    steps_t = tr.pipe.sched.num_timesteps
+    want = expected_launches(cfg, 64, 64)
+    for k in ("A", "B", "E", "fused shift"):
+        want[k] *= 2
+    want.update({"C": steps_t + 2 + 2, "D": steps_t + 1 + 1, "D finalize": steps_t + 1 + 1})
+    (got,) = calls["17 validate"]
+    print(f"  launches in validation: {got} (derived: {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"validation launches {got}, want {want}")
+    launches["17 validate"] = got
+    (launches["17 grids"],) = calls["17 grids"]
+    print(f"  launches in the iteration-2 grids: {launches['17 grids']}", flush=True)
+    val = [m for m in log if "val_psnr_y" in m]
+    if not (val and math.isfinite(val[0]["val_psnr_y"])):
+        raise AssertionError(f"no finite validation metrics in the log: {val}")
+    images = sorted(p.name for p in (root / "run_a" / "images").rglob("*.png"))
+    if len(images) != 6:
+        raise AssertionError(f"images written: {images}")
+    times = {k: statistics.median(t[k] for t in tr.timings[1:3])
+             for k in ("loader_ms", "degrade_ms", "step_ms")}
+    it_ms = sum(times.values())
+    print(f"  validation PSNR(Y) {val[0]['val_psnr_y']:.2f} dB (random weights); images "
+          f"{images}", flush=True)
+    print(f"  ms per iteration (median of iterations 2-3): {it_ms:.1f} = loader "
+          f"{times['loader_ms']:.1f} + degrader {times['degrade_ms']:.1f} + step "
+          f"{times['step_ms']:.1f}; {tr.batch / (it_ms / 1e3):.2f} images/s "
+          f"({tr.batch / (times['step_ms'] / 1e3):.2f} in the step alone); peak "
+          f"max_memory_allocated {peak_gib:.2f} GiB; on {card}", flush=True)
+    result = {"ms_per_iteration": it_ms, **times, "peak_gib": peak_gib,
+              "images_per_s": tr.batch / (it_ms / 1e3)}
+    del tr
+
+    # ------------------------------------------------------------ 17(b)
+    print("  17(b): resume on paired data (base type, batch 16 in microbatches of 8): 3 "
+          "iterations straight against 2 + save + resume + 1, deterministic algorithms on",
+          flush=True)
+    cfg_b = realsr_train_config([], "", "")
+    cfg_b["data"] = dict(train=dict(type="base", params=dict(
+        dir_path=str(dirs["pair_lq"]), extra_dir_path=str(dirs["pair_gt"]))))
+    cfg_b["train"].update(batch=16, num_workers=0, log_freq=[1000, 1000], save_freq=1000)
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = Trainer(cfg_b, save_dir=str(root / "b1"), dtype=torch.bfloat16, seed=0)
+        straight.train(stop_iter=3)
+        first = Trainer(cfg_b, save_dir=str(root / "b2"), dtype=torch.bfloat16, seed=0)
+        first.train(stop_iter=2)
+        del first
+        resumed = Trainer(cfg_b, save_dir=str(root / "b3"), dtype=torch.bfloat16, seed=0,
+                          resume=str(root / "b2" / "ckpts" / "step_00000002"))
+        resumed.train(stop_iter=3)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    a, b = straight.step_fn.state_dict(), resumed.step_fn.state_dict()
+    same = total = 0
+    for part in ("params", "ema", "exp_avg", "exp_avg_sq"):
+        for k, v in a[part].items():
+            same += (v == b[part][k]).sum().item()
+            total += v.numel()
+    print(f"  resume: step {b['step']} (straight {a['step']}); {100 * same / total:.4f}% of "
+          f"params, EMA and moments bit-equal", flush=True)
+    if a["step"] != b["step"] or same != total:
+        raise AssertionError(f"the resumed run differs from the straight one: {same} of {total} "
+                             f"values bit-equal")
+    result["resume_bit_equal_share"] = same / total
+    del straight, resumed, a, b
+
+    # ------------------------------------------------------------ 17(c)
+    print("  17(c): one microbatch's gradient with kernels A and B (use_pallas None, their "
+          "autograd Functions) against the plain composition (use_pallas False)", flush=True)
+    batch = {"gt": torch.rand(8, 256, 256, 3, generator=torch.Generator().manual_seed(33)),
+             "lq": torch.rand(8, 64, 64, 3, generator=torch.Generator().manual_seed(34))}
+    batch = {k: (v * 2 - 1).to(dev) for k, v in batch.items()}
+    for dt, bar in ((torch.float32, 1e-3), (torch.bfloat16, None)):
+        pipe = ResShiftPipeline(realsr_train_config([], "", ""), dtype=dt)
+        pipe.init_params(0)
+        step = TrainStep(pipe, TrainConfig(microbatch=8))
+        grads = {}
+        for pin in (None, False):
+            step.train_unet = pipe.unet.clone(use_pallas=pin).train()
+            reset()
+            step.grads(batch, torch.Generator(device=dev).manual_seed(35))
+            n = read_launches(all_kernels, sb)
+            key = "A" if dt == torch.bfloat16 else "A f32"
+            if bool(n[key]) != (pin is None):
+                raise AssertionError(f"use_pallas={pin}: A launched {n[key]} times")
+            grads[pin] = torch.cat([p.grad.float().flatten() for _, p in step.named])
+        rel = ((grads[None] - grads[False]).norm() / grads[False].norm()).item()
+        tag = "f32" if dt == torch.float32 else "bf16"
+        print(f"  {tag}: relative L2 of the gradient, kernels against plain: {rel:.3e}"
+              + (f" (bar {bar})" if bar else " (not gated)"), flush=True)
+        if bar and not rel <= bar:
+            raise AssertionError(f"gradient with the kernels off by {rel} (relative L2)")
+        result[f"grad_rel_l2_{tag}"] = rel
+        del pipe, step, grads
+    tmp.cleanup()
+    return result
+
+
 def run_tools(root: Path) -> dict:
     """Phase 12: each tool of TOOL_RUNS in its own process on the card, at its
     full width with two timed calls; each must exit 0, launch its kernels
@@ -1104,6 +1451,11 @@ def kernel_rows(launches: dict, errs: dict, timed: dict) -> list[dict]:
 
 
 def main() -> int:
+    # cuBLAS's deterministic workspace (phase 17(b) turns deterministic
+    # algorithms on), set before the first cuBLAS call
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1156,6 +1508,7 @@ def main() -> int:
     p2_errs, p2_timed = check_attn_variants(dev)
     errs.update(p2_errs)
     timed.update(p2_timed)
+    grad_errs = check_grads(dev)
 
     # ---------------------------------------------------------------- 3
     print("phase 3: realsr_v1, full width, bf16, 15 steps, batch 8 of 64x64", flush=True)
@@ -1394,10 +1747,12 @@ def main() -> int:
     def task_pipeline(name: str, pin: bool, sds=None):
         """Task `name` at full width in bf16, kernel F pinned or not in the
         UNet head and the VQGAN decoder tail through the config keys
-        `model.use_pallas` and `autoencoder.use_pallas`, as a `--config`
-        YAML sets them; phase 3's kind of random weights, or `sds`."""
+        `model.use_pallas` (true, or unset: A, B and E on, F off) and
+        `autoencoder.use_pallas`, as a `--config` YAML sets them; phase 3's
+        kind of random weights, or `sds`."""
         cfg = task_config(name)
-        cfg["model"]["use_pallas"] = cfg["autoencoder"]["use_pallas"] = pin
+        cfg["model"]["use_pallas"] = True if pin else None
+        cfg["autoencoder"]["use_pallas"] = pin
         p = ResShiftPipeline(cfg, dtype=torch.bfloat16)
         if sds is None:
             p.init_params(seed=0)
@@ -1749,7 +2104,30 @@ def main() -> int:
         raise AssertionError(f"progressive final latent PSNR {psnr:.2f} dB below 35")
     del pipe1, ref, final, strip
 
-    print(json.dumps({"kernels": kernel_rows(launches, errs, timed)}))
+    # ---------------------------------------------------------------- 17
+    print("phase 17: realsr_v1 training, full width (UNet 160, Swin 192 / 6 x 32 / 8x8, f4 "
+          "VQGAN), seeded random weights, bf16 compute on f32 masters, batch 64 in "
+          "microbatches of 8, GT 256", flush=True)
+    train_phase(dev, card, all_kernels, read_launches, reset, launches)
+
+    rows = kernel_rows(launches, errs, timed)
+    backward = {"A": "autograd Function: the plain version's gradient, recomputed",
+                "B": "autograd Function: the plain version's gradient, recomputed",
+                "C": "none (no VJP in JAX): raises where autograd would record it",
+                "D": "none needed: integer indices",
+                "E": "kernel E with inverse flipped",
+                "F": "autograd Function: the plain composition's gradient, recomputed",
+                "K9": "autograd Function: the plain version's gradient, recomputed"}
+    by_name = {"swin_window_attn": "A", "swin_mlp": "B", "flash_attn_1h": "C",
+               "vq_nearest": "D", "shift_tokens": "E", "gn_silu_conv3x3": "F", "gn_stats": "F",
+               "window_attn": "K9"}
+    for row in rows:  # K10, P1 and P2: no VJP in JAX
+        kern = by_name.get(row["name"].removesuffix("_tc"))
+        row["backward"] = backward.get(kern, "none (no VJP in JAX)")
+        errs_k = [v for k, v in grad_errs.items()
+                  if kern and k.startswith(kern + " ") and k.endswith(row.get("dtype", "bf16"))]
+        row["backward_max_rel_err"] = max(errs_k) if errs_k else None
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

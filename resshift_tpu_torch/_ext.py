@@ -23,7 +23,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["Kernel", "aligned16", "build_all", "dtype_code", "query", "P", "I", "F"]
+__all__ = ["Kernel", "Recompute", "aligned16", "build_all", "dtype_code", "query", "P", "I",
+           "F"]
 
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
@@ -162,3 +163,50 @@ class Kernel:
         self.launches += 1
         if variant is not None:
             self.variants[variant] = self.variants.get(variant, 0) + 1
+
+
+_SAVED = object()  # a tensor argument's place in `Recompute`'s static list
+
+
+class Recompute(torch.autograd.Function):
+    """A kernel launch with the gradient of its plain version:
+    `Recompute.apply(kernel, plain, *args)` returns `kernel(*args)`, and its
+    backward recomputes `plain(*args)` under autograd and returns that
+    graph's gradients, as the JAX package's custom VJPs call `jax.vjp` of
+    their XLA compositions.  `args` mixes tensors and static values (ints,
+    None); `plain` returns a tensor or a tuple of them, as `kernel` does.
+    `Recompute.launch` goes through the Function only where autograd
+    records the call, and launches the kernel directly elsewhere (the
+    sampler, under `no_grad`), without the Function's host cost."""
+
+    @classmethod
+    def launch(cls, kernel, plain, *args):
+        if torch.is_grad_enabled() and any(isinstance(a, torch.Tensor) and a.requires_grad
+                                           for a in args):
+            return cls.apply(kernel, plain, *args)
+        return kernel(*args)
+
+    @staticmethod
+    def forward(ctx, kernel, plain, *args):
+        ctx.plain = plain
+        ctx.static = [_SAVED if isinstance(a, torch.Tensor) else a for a in args]
+        ctx.save_for_backward(*(a for a in args if isinstance(a, torch.Tensor)))
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = iter(ctx.saved_tensors)
+        needs = ctx.needs_input_grad[2:]
+        ins = [next(saved).detach().requires_grad_(need) if a is _SAVED else a
+               for a, need in zip(ctx.static, needs)]
+        wanted = [t for t in ins if isinstance(t, torch.Tensor) and t.requires_grad]
+        got = iter(())
+        if wanted:
+            with torch.enable_grad():
+                outs = ctx.plain(*ins)
+            pairs = [(o, g) for o, g in zip(outs if isinstance(outs, tuple) else (outs,), grads)
+                     if o.requires_grad]
+            got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
+                                           allow_unused=True))
+        return (None, None, *(next(got) if isinstance(t, torch.Tensor) and t.requires_grad
+                              else None for t in ins))

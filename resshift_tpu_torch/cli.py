@@ -5,8 +5,11 @@
          bicsr, inpaint_imagenet, inpaint_face (with --mask-path) or faceir
   eval   `infer` with the chop and batch of a README reproduce protocol,
          then the PSNR/SSIM(Y) report
+  train  train a task from a config whose data.train names the images
+         (--save-dir, --resume ckpts/step_XXXXXXXX); SIGTERM checkpoints
 
-The single-device part of the JAX package's `cli infer` / `cli eval`.
+The single-device part of the JAX package's `cli infer` / `cli eval` /
+`cli train`.
 Images are grouped by shape into batches of `--bs`; a reader thread reads
 ahead while the main thread launches the sampler, and a writer thread waits
 for each batch's result and writes its PNGs.  The noise comes from one
@@ -201,6 +204,20 @@ def cmd_eval(args) -> None:
                        extra={"protocol": args.protocol, "seconds": round(seconds, 1)})
 
 
+def cmd_train(args) -> None:
+    """Train a task (`train_loop.Trainer`); SIGTERM / SIGINT checkpoint and
+    stop at the next iteration boundary."""
+    from .train_loop import Trainer
+
+    cfg = _config(args)
+    if not (cfg.get("data") or {}).get("train"):
+        raise SystemExit("the config has no data.train section: give --config with dataset "
+                         "paths")
+    Trainer(cfg, save_dir=args.save_dir, resume=args.resume,
+            dtype=torch.bfloat16 if args.bf16 else torch.float32, seed=args.seed,
+            device=args.device).train(handle_signals=True)
+
+
 def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="resshift_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -245,6 +262,21 @@ def make_parser() -> argparse.ArgumentParser:
     common(pe)
     pe.add_argument("--protocol", required=True, choices=sorted(EVAL_PROTOCOLS))
     pe.set_defaults(fn=cmd_eval)
+
+    pt = sub.add_parser("train", help="train a task from a config with data paths")
+    pt.add_argument("--config", default=None, help="YAML (or JSON) config with data.train")
+    pt.add_argument("--task", default="realsr",
+                    choices=["realsr", "bicsr", "inpaint_imagenet", "inpaint_face", "faceir"])
+    pt.add_argument("--version", default="v3", choices=["v1", "v2", "v3"])
+    pt.add_argument("--scale", type=int, default=4)
+    pt.add_argument("--save-dir", default="./save_dir")
+    pt.add_argument("--resume", default=None, help="a ckpts/step_XXXXXXXX directory")
+    pt.add_argument("--seed", type=int, default=12345)
+    pt.add_argument("--bf16", action="store_true", default=True)
+    pt.add_argument("--fp32", dest="bf16", action="store_false")
+    pt.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions of the kernels")
+    pt.set_defaults(fn=cmd_train)
     return p
 
 

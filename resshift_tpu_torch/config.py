@@ -9,6 +9,7 @@ sampler runs where PyYAML is not installed.
 from __future__ import annotations
 
 import copy
+import json
 import re
 from pathlib import Path
 from typing import Any
@@ -165,11 +166,16 @@ def _deep_merge(base: dict, over: dict) -> dict:
 
 def load_yaml_config(path: str | Path) -> dict:
     """YAML config with `${a.b.c}` interpolation.  A top-level
-    `base_task: <name>` deep-merges the file over that built-in task."""
-    import yaml  # lazy: an optional dependency of the port
-
+    `base_task: <name>` deep-merges the file over that built-in task.  A
+    `.json` file is read with the json module (JSON is YAML), which needs
+    no PyYAML."""
     with open(path) as f:
-        raw = yaml.safe_load(f)
+        if str(path).endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml  # lazy: an optional dependency of the port
+
+            raw = yaml.safe_load(f)
     base = raw.pop("base_task", None)
     if base:
         raw = _deep_merge(task_config(base), raw)

@@ -16,7 +16,7 @@ from typing import Any, Iterable, Mapping
 
 import numpy as np
 
-__all__ = ["from_flax", "load_torch_state_dict"]
+__all__ = ["from_flax", "load_torch_state_dict", "train_state_from_flax"]
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple[str, ...], Any]:
@@ -222,3 +222,35 @@ def load_torch_state_dict(path: str) -> dict[str, Any]:
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return _strip_prefixes(obj)
+
+
+def _adam_state(opt_state) -> Any:
+    """The element of an optax state that holds `mu`, `nu` and `count`."""
+    if all(hasattr(opt_state, a) for a in ("mu", "nu", "count")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_flax(state, **unet_cfg) -> dict:
+    """A JAX train state (the JAX package's `trainer.State`: params,
+    optax.adamw's state, EMA params, step) -> the port's train-state dict
+    (`TrainStep.load_state_dict`, `checkpoint.save_train_state`): params,
+    EMA and the Adam moments mu / nu through `from_flax(..., "unet",
+    **unet_cfg)`, which maps a moment tree as it maps the params, and the
+    step.  Adam's count must equal the step."""
+    import torch
+
+    adam = _adam_state(state.opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optimizer state")
+    step = int(np.asarray(state.step))
+    if int(np.asarray(adam.count)) != step:
+        raise ValueError(f"Adam's count {int(np.asarray(adam.count))} is not the step {step}")
+    tree = lambda t: {k: torch.tensor(v) for k, v in from_flax(t, "unet", **unet_cfg).items()}
+    return {"step": step, "params": tree(state.params), "ema": tree(state.ema_params),
+            "exp_avg": tree(adam.mu), "exp_avg_sq": tree(adam.nu)}

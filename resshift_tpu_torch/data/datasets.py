@@ -1,0 +1,341 @@
+"""Host-side datasets and the loader (the port's own copy of the part of
+the JAX package's `data/datasets.py` that realsr training runs).
+
+  * `BaseData` (realsr's `val` type): images from a folder or a txt
+    listing, with the paired GT from `extra_dir_path`;
+  * `RealESRGANData`: HQ crops and each sample's three blur kernels, drawn
+    from the dataset's `np.random.Generator` in the JAX package's order,
+    so that the same seed and files give the same items bit for bit;
+  * `create_dataset` (the `type` factory) and `DataLoader` (epoch
+    shuffling from (seed, epoch), `skip_batches` to resume, `num_workers`
+    threads each with a reseeded deep copy of the dataset).
+Images are NHWC float32, normalised to [-1, 1] (mean = std = 0.5) except
+`RealESRGANData`'s GT, which the degrader takes in [0, 1].  The other
+dataset types of the JAX package, packed files and memcached raise
+NotImplementedError: ROADMAP.md section 1 lists them.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import copy
+import math
+import queue as _queue
+import threading
+import weakref
+from pathlib import Path
+
+import numpy as np
+
+from ..ops.resize import resize_np
+from ..utils.image_io import imread, list_images
+from . import degradations as deg
+
+__all__ = ["create_dataset", "DataLoader", "BaseData", "RealESRGANData"]
+
+_NOT_PORTED = ("is not ported yet (ROADMAP.md section 1: the other dataset types, packed "
+               "files and memcached)")
+
+
+def _collect_paths(dir_path=None, dir_paths=None, txt_path=None, txt_file_path=None,
+                   recursive=True, length=None,
+                   rng: np.random.Generator | None = None) -> list[str]:
+    paths: list[str] = []
+    dirs = list(dir_paths or [])
+    if dir_path:
+        dirs.append(dir_path)
+    for d in dirs:
+        paths.extend(str(p) for p in list_images(d, recursive=recursive))
+    txts = list(txt_file_path if isinstance(txt_file_path, (list, tuple))
+                else [txt_file_path] if txt_file_path else [])
+    if txt_path:
+        txts.append(txt_path)
+    for t in txts:
+        with open(t) as f:
+            paths.extend(ln.strip() for ln in f if ln.strip())
+    if length is not None and len(paths) > length:
+        rng = rng or np.random.default_rng()
+        paths = list(rng.choice(paths, size=length, replace=False))
+    return paths
+
+
+def _normalize(im: np.ndarray, mean=0.5, std=0.5) -> np.ndarray:
+    return (im.astype(np.float32) - mean) / std
+
+
+def _augment(rng, im, hflip=True, rot=True):
+    """hflip / vflip / transpose, each with probability 1/2."""
+    do_h = hflip and rng.uniform() < 0.5
+    do_v = rot and rng.uniform() < 0.5
+    do_r = rot and rng.uniform() < 0.5
+    if do_h:
+        im = im[:, ::-1]
+    if do_v:
+        im = im[::-1]
+    if do_r:
+        im = im.transpose(1, 0, 2)
+    return np.ascontiguousarray(im)
+
+
+def _no_pack(pack_path, io_backend):
+    if pack_path or (io_backend or {}).get("type") == "memcached":
+        raise NotImplementedError(f"pack_path / memcached {_NOT_PORTED}")
+
+
+class BaseData:
+    """Images from a folder or txt listing; `extra_dir_path` gives the GT
+    of the same file name."""
+
+    def __init__(self, dir_path=None, txt_path=None, mean=0.5, std=0.5, extra_dir_path=None,
+                 length=None, need_path=False, im_exts=None, recursive=False, seed=0,
+                 pack_path=None, extra_pack_path=None, io_backend=None, **_):
+        _no_pack(pack_path or extra_pack_path, io_backend)
+        self.paths = _collect_paths(dir_path=dir_path, txt_path=txt_path, recursive=recursive,
+                                    length=length, rng=np.random.default_rng(seed))
+        self.mean, self.std = mean, std
+        self.extra_dir_path = extra_dir_path
+        self.need_path = need_path
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        p = self.paths[i]
+        im = _normalize(imread(p), self.mean, self.std)
+        out = {"lq": im, "image": im}
+        if self.extra_dir_path is not None:
+            out["gt"] = _normalize(imread(Path(self.extra_dir_path) / Path(p).name),
+                                   self.mean, self.std)
+        if self.need_path:
+            out["path"] = str(p)
+        return out
+
+
+class RealESRGANData:
+    """HQ crops (GT in [0, 1]) and per-sample kernels for the degrader."""
+
+    def __init__(self, dir_paths=(), txt_file_path=(), im_exts=("JPEG",), blur_kernel_size=21,
+                 kernel_list=None, kernel_prob=None, sinc_prob=0.1, blur_sigma=(0.2, 3.0),
+                 betag_range=(0.5, 4.0), betap_range=(1, 2.0), blur_kernel_size2=15,
+                 kernel_list2=None, kernel_prob2=None, sinc_prob2=0.1, blur_sigma2=(0.2, 1.5),
+                 betag_range2=(0.5, 4.0), betap_range2=(1, 2.0), final_sinc_prob=0.8,
+                 gt_size=256, crop_pad_size=300, use_hflip=True, use_rot=False,
+                 rescale_gt=True, length=None, mode="training", seed=0, pack_path=None,
+                 io_backend=None, **_):
+        _no_pack(pack_path, io_backend)
+        self.rng = np.random.default_rng(seed)
+        self.paths = _collect_paths(dir_paths=dir_paths, txt_file_path=txt_file_path,
+                                    length=length, rng=self.rng)
+        d = ["iso", "aniso", "generalized_iso", "generalized_aniso", "plateau_iso",
+             "plateau_aniso"]
+        dp = [0.45, 0.25, 0.12, 0.03, 0.12, 0.03]
+        self.k1 = dict(size=blur_kernel_size, lists=kernel_list or d, probs=kernel_prob or dp,
+                       sinc=sinc_prob, sigma=blur_sigma, betag=betag_range, betap=betap_range)
+        self.k2 = dict(size=blur_kernel_size2, lists=kernel_list2 or d,
+                       probs=kernel_prob2 or dp, sinc=sinc_prob2, sigma=blur_sigma2,
+                       betag=betag_range2, betap=betap_range2)
+        self.final_sinc_prob = final_sinc_prob
+        self.gt_size = gt_size
+        self.crop_pad_size = crop_pad_size
+        self.use_hflip, self.use_rot = use_hflip, use_rot
+        self.rescale_gt = rescale_gt
+        self.mode = mode
+
+    def __len__(self):
+        return len(self.paths)
+
+    def _load_gt(self, i):
+        """The file, or (after a failed read) another drawn at random; three tries."""
+        for _ in range(3):
+            try:
+                return imread(self.paths[i])
+            except (OSError, ValueError):
+                i = int(self.rng.integers(len(self.paths)))
+        return imread(self.paths[i])
+
+    def _draw_kernel(self, spec) -> np.ndarray:
+        rng = self.rng
+        ks = int(rng.choice(np.arange(3, spec["size"], 2)))
+        if rng.uniform() < spec["sinc"]:
+            omega = rng.uniform(np.pi / 3 if ks < 13 else np.pi / 5, np.pi)
+            k = deg.circular_lowpass_kernel(omega, ks)
+        else:
+            k = deg.random_mixed_kernels(rng, spec["lists"], spec["probs"], ks, spec["sigma"],
+                                         spec["sigma"], (-math.pi, math.pi), spec["betag"],
+                                         spec["betap"])
+        p = (spec["size"] - ks) // 2
+        return np.pad(k, ((p, p), (p, p))).astype(np.float32)
+
+    def __getitem__(self, i):
+        rng = self.rng
+        img = self._load_gt(i)
+        if self.mode == "testing":
+            h, w = img.shape[:2]
+            s = self.gt_size / min(h, w)
+            img = resize_np(img, (max(self.gt_size, round(h * s)),
+                                  max(self.gt_size, round(w * s))), "bicubic_matlab")
+            top = (img.shape[0] - self.gt_size) // 2
+            left = (img.shape[1] - self.gt_size) // 2
+            img = img[top:top + self.gt_size, left:left + self.gt_size]
+        else:
+            img = _augment(rng, img, self.use_hflip, self.use_rot)
+            h, w = img.shape[:2]
+            cps = max(min(h, w), self.gt_size) if self.rescale_gt else self.crop_pad_size
+            while h < cps or w < cps:  # reflect-pad until the crop fits
+                ph, pw = min(max(0, cps - h), h), min(max(0, cps - w), w)
+                img = np.pad(img, ((0, ph), (0, pw), (0, 0)), mode="reflect")
+                h, w = img.shape[:2]
+            if h > cps or w > cps:
+                top = int(rng.integers(0, h - cps + 1))
+                left = int(rng.integers(0, w - cps + 1))
+                img = img[top:top + cps, left:left + cps]
+            if self.rescale_gt and cps != self.gt_size:
+                img = resize_np(img, (self.gt_size, self.gt_size), "area")
+        k1 = self._draw_kernel(self.k1)
+        k2 = self._draw_kernel(self.k2)
+        if rng.uniform() < self.final_sinc_prob:
+            ks = int(rng.choice(np.arange(3, self.k2["size"], 2)))
+            omega = rng.uniform(np.pi / 3, np.pi)
+            sinc = deg.circular_lowpass_kernel(omega, ks, pad_to=self.k2["size"])
+            sinc = sinc.astype(np.float32)
+        else:
+            sinc = deg.pulse_kernel(self.k2["size"])
+        return {"gt": img.astype(np.float32), "kernel1": k1, "kernel2": k2, "sinc_kernel": sinc}
+
+
+_FACTORY = {"base": BaseData, "realesrgan": RealESRGANData}
+_JAX_ONLY = ("bicubic", "inpainting", "inpainting_val", "gfpgan", "bsrgan", "bsrganimagenet",
+             "siddval", "deg_from_source")
+
+
+def create_dataset(config: dict):
+    """The dataset of `config['type']` with `config['params']` (the
+    reference's `transform_kwargs` mean/std flattened in)."""
+    kind = config["type"]
+    if kind in _JAX_ONLY:
+        raise NotImplementedError(f"dataset type '{kind}' {_NOT_PORTED}")
+    if kind not in _FACTORY:
+        raise ValueError(f"unknown dataset type '{kind}'; have {sorted(_FACTORY)}")
+    params = dict(config.get("params", {}))
+    tk = params.pop("transform_kwargs", None) or {}
+    params.setdefault("mean", tk.get("mean", 0.5))
+    params.setdefault("std", tk.get("std", 0.5))
+    params.pop("transform_type", None)
+    return _FACTORY[kind](**params)
+
+
+class DataLoader:
+    """Epoch-shuffled batches with a prefetch thread and sharding by
+    (shard_id, num_shards); `num_workers` > 0 loads items on that many
+    threads, each with its own deep copy of the dataset whose generator is
+    reseeded from (seed, worker), items assigned round robin (so a run is
+    reproducible; its draws differ from `num_workers` = 0, as torch's
+    DataLoader's do)."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True, drop_last: bool = True,
+                 seed: int = 0, shard_id: int = 0, num_shards: int = 1, prefetch: int = 2,
+                 num_workers: int = 0):
+        self.ds = dataset
+        self.bs = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.shard_id, self.num_shards = shard_id, num_shards
+        self.prefetch = prefetch
+        self.num_workers = num_workers
+        self._pool = None
+        self._workers = None
+        self.epoch = 0
+
+    def __len__(self):
+        n = len(self.ds) // self.num_shards
+        return n // self.bs if self.drop_last else math.ceil(n / self.bs)
+
+    def _epoch_indices(self):
+        idx = np.arange(len(self.ds))
+        if self.shuffle:
+            idx = np.random.default_rng(self.seed + self.epoch).permutation(idx)
+        return idx[self.shard_id::self.num_shards]
+
+    def _ensure_workers(self):
+        if self._pool is not None:
+            return
+        copies = [copy.deepcopy(self.ds) for _ in range(self.num_workers)]
+        for w, ds in enumerate(copies):
+            rng = getattr(ds, "rng", None)
+            if isinstance(rng, np.random.Generator):  # in place: aliases follow
+                rng.bit_generator.state = np.random.default_rng(
+                    (self.seed, 7919, w)).bit_generator.state
+        self._workers = copies
+        self._pool = [concurrent.futures.ThreadPoolExecutor(max_workers=1)
+                      for _ in range(self.num_workers)]
+        weakref.finalize(self, DataLoader._shutdown_pool, self._pool)
+
+    @staticmethod
+    def _shutdown_pool(pool):
+        for ex in pool:
+            ex.shutdown(wait=False)
+
+    def close(self):
+        """Stop the worker threads and drop their dataset copies."""
+        if self._pool is not None:
+            self._shutdown_pool(self._pool)
+            self._pool = self._workers = None
+
+    def _fetch_items(self, chunk):
+        if self.num_workers > 0:
+            self._ensure_workers()
+            futs = [self._pool[j % self.num_workers].submit(
+                self._workers[j % self.num_workers].__getitem__, i) for j, i in enumerate(chunk)]
+            return [f.result() for f in futs]
+        return [self.ds[i] for i in chunk]
+
+    def _batches(self, start_batch: int = 0):
+        idx = self._epoch_indices()
+        stop = len(idx) - (len(idx) % self.bs) if self.drop_last else len(idx)
+        for s in range(start_batch * self.bs, stop, self.bs):
+            items = self._fetch_items([int(i) for i in idx[s:s + self.bs]])
+            yield {k: (np.stack([it[k] for it in items]) if not isinstance(items[0][k], str)
+                       else [it[k] for it in items]) for k in items[0]}
+
+    def _iter_from(self, start_batch: int = 0):
+        if self.prefetch <= 0:
+            yield from self._batches(start_batch)
+            self.epoch += 1
+            return
+        q: _queue.Queue = _queue.Queue(maxsize=self.prefetch)
+        stop = object()
+
+        def worker():
+            try:
+                for b in self._batches(start_batch):
+                    q.put(b)
+            except Exception as e:  # handed to the consumer, which re-raises
+                q.put(e)
+            q.put(stop)
+
+        threading.Thread(target=worker, daemon=True).start()
+        while True:
+            b = q.get()
+            if b is stop:
+                break
+            if isinstance(b, BaseException):
+                raise b
+            yield b
+        self.epoch += 1
+
+    def __iter__(self):
+        yield from self._iter_from(0)
+
+    def infinite(self, skip_batches: int = 0):
+        """Endless batches.  `skip_batches` fast-forwards the index stream
+        without loading items: the shuffle is a function of (seed, epoch),
+        so a resumed run sees the batches an uninterrupted one would (bit
+        for bit for datasets without draws of their own, such as paired
+        folders)."""
+        per_epoch = max(1, len(self))
+        self.epoch += skip_batches // per_epoch
+        start = skip_batches % per_epoch
+        while True:
+            yield from self._iter_from(start)
+            start = 0

@@ -6,7 +6,8 @@ from an explicit `torch.Generator`, or are passed in (`noise=`,
 `step_noise=`) so that a test can feed both this port and the JAX package
 the same numbers.  `sample_loop_parallel` runs the same chain as Picard
 sweeps over the whole trajectory at once, `sample_loop_progressive` keeps
-every step's sample and x0 prediction.
+every step's sample and x0 prediction.  `q_sample` and `training_losses`
+are the training side: the forward process and the per-sample latent MSE.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 
 from .schedule import Schedule
 
-__all__ = ["scale_input", "predict_xstart_from_eps",
+__all__ = ["q_sample", "q_mean_variance", "q_posterior_mean_variance", "training_losses",
+           "scale_input", "predict_xstart_from_eps",
            "predict_xstart_from_eps_scale", "predict_xstart_from_residual",
            "predict_eps_from_xstart", "prior_sample", "p_mean_variance",
            "p_sample", "sample_loop", "sample_loop_parallel", "sample_loop_progressive",
@@ -40,6 +42,71 @@ def _t_vec(t: int | torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if isinstance(t, torch.Tensor):
         return t.long().expand(x.shape[0])
     return torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+
+
+def q_sample(sched: Schedule, x_start, y, t, noise):
+    """q(x_t | x0, y) = x0 + eta_t (y - x0) + kappa sqrt(eta_t) eps; `t` a [B]
+    vector of respaced steps."""
+    nd = x_start.ndim
+    etas = _extract(sched.etas, t, nd)
+    std = _extract(sched.sqrt_etas, t, nd) * sched.kappa
+    return etas * (y - x_start) + x_start + std * noise
+
+
+def q_mean_variance(sched: Schedule, x_start, y, t):
+    """The mean, variance and log-variance of q(x_t | x0, y)."""
+    etas = _extract(sched.etas, t, x_start.ndim)
+    variance = etas * sched.kappa**2
+    return etas * (y - x_start) + x_start, variance, torch.log(variance)
+
+
+def q_posterior_mean_variance(sched: Schedule, x_start, x_t, t):
+    """The mean, variance and clipped log-variance of q(x_{t-1} | x_t, x0)."""
+    nd = x_t.ndim
+    mean = (_extract(sched.posterior_mean_coef1, t, nd) * x_t
+            + _extract(sched.posterior_mean_coef2, t, nd) * x_start)
+    return (mean, _extract(sched.posterior_variance, t, nd),
+            _extract(sched.posterior_log_variance_clipped, t, nd))
+
+
+def training_losses(sched: Schedule, model_fn: ModelFn, z_start, z_y, t, noise, *,
+                    model_kwargs: dict[str, Any] | None = None, weighted_mse: bool = False):
+    """Per-sample MSE in latent space between the model output and its
+    target (x0, the residual, eps or kappa sqrt(eta) eps, by the schedule's
+    mean type; epsilon_scale divides by kappa^2 eta, `weighted_mse`
+    multiplies by the schedule's `weight_loss_mse`).  `z_start`, `z_y` are
+    the encoded latents, `t` a [B] vector, `noise` the q_sample draw.
+    Returns (mse[B], z_t, pred_zstart)."""
+    model_kwargs = model_kwargs or {}
+    nd = z_start.ndim
+    z_t = q_sample(sched, z_start, z_y, t, noise)
+    model_output = model_fn(scale_input(sched, z_t, t), sched.timestep_map[t],
+                            **model_kwargs).float()
+    mtype = sched.model_mean_type
+    if mtype == "xstart":
+        target = z_start
+    elif mtype == "residual":
+        target = z_y - z_start
+    elif mtype == "epsilon":
+        target = noise
+    elif mtype == "epsilon_scale":
+        target = noise * sched.kappa * _extract(sched.sqrt_etas, t, nd)
+    else:
+        raise ValueError(f"unknown model_mean_type: {mtype}")
+    mse = ((target - model_output) ** 2).mean(dim=tuple(range(1, nd)))
+    if mtype == "epsilon_scale":
+        mse = mse / (sched.kappa**2 * _extract(sched.etas, t, 1).reshape(-1))
+    if weighted_mse:
+        mse = mse * _extract(sched.weight_loss_mse, t, 1).reshape(-1)
+    if mtype == "xstart":
+        pred_zstart = model_output
+    elif mtype == "epsilon":
+        pred_zstart = predict_xstart_from_eps(sched, z_t, z_y, t, model_output)
+    elif mtype == "residual":
+        pred_zstart = predict_xstart_from_residual(z_y, model_output)
+    else:
+        pred_zstart = predict_xstart_from_eps_scale(sched, z_t, z_y, t, model_output)
+    return mse, z_t, pred_zstart
 
 
 def scale_input(sched: Schedule, x, t):

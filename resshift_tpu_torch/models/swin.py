@@ -11,6 +11,10 @@
     `shift_fuse_fits` holds, as the JAX package does; on wider maps the
     token permutation of ops/shift.py runs before and after the attention
     half.
+  * `use_pallas` is the JAX package's tri-state pin: None (auto) and True
+    launch kernels A, B and E on a CUDA tensor; False runs the plain
+    composition on every device (the JAX trainer's pin: the kernels'
+    backward recomputes that composition anyway).
 """
 
 from __future__ import annotations
@@ -143,8 +147,10 @@ class SwinTransformerBlock(nn.Module):
     """One Swin block on (B, T, C) tokens: (S)W-MSA half, then the MLP half."""
 
     def __init__(self, dim: int, build_resolution: int, num_heads: int, window_size: int = 8,
-                 shift: bool = False, mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32):
+                 shift: bool = False, mlp_ratio: float = 4.0, dtype: torch.dtype = torch.float32,
+                 use_pallas: bool | None = None):
         super().__init__()
+        self.use_pallas = use_pallas
         ws = window_size
         shift_size = ws // 2 if shift else 0
         if build_resolution <= ws:
@@ -187,19 +193,28 @@ class SwinTransformerBlock(nn.Module):
         # a token permutation keeps per-image statistics, so the affines hold
         # in either layout
         wa, ba = sb.fold_stats(stats, self.norm1.weight, self.norm1.bias, t)
+        # the pin False: the plain composition on every device (the plain
+        # versions of both routes are the same gathers and products)
+        plain = self.use_pallas is False
         if shift and sb.shift_fuse_fits(w, ws):
-            y, ys, yq = sb.shift_attn_residual_stats(xt, wa, ba, wqkv, bqkv, wproj, bproj,
-                                                     bias_mask, nh, n, h, w, ws, shift)
+            shift_attn_half = (sb.shift_attn_residual_stats_plain if plain
+                               else sb.shift_attn_residual_stats)
+            unshift_mlp_half = (sb.mlp_unshift_residual_stats_plain if plain
+                                else sb.mlp_unshift_residual_stats)
+            y, ys, yq = shift_attn_half(xt, wa, ba, wqkv, bqkv, wproj, bproj, bias_mask, nh, n,
+                                        h, w, ws, shift)
             wm, bm = sb.fold_stats((ys, yq), self.norm2.weight, self.norm2.bias, t)
-            return sb.mlp_unshift_residual_stats(y, wm, bm, w1, b1, w2, b2, h, w, ws, shift)
+            return unshift_mlp_half(y, wm, bm, w1, b1, w2, b2, h, w, ws, shift)
         # wider shifted maps: kernel E permutes around the unshifted halves
-        xs = shift_ops.shift_tokens(xt, h, w, ws, shift) if shift else xt
-        y, ys, yq = sb.norm_attn_residual_stats(xs, wa, ba, wqkv, bqkv, wproj, bproj,
-                                                bias_mask, nh, n)
+        attn_half = sb.norm_attn_residual_stats_plain if plain else sb.norm_attn_residual_stats
+        mlp_half = sb.norm_mlp_residual_stats_plain if plain else sb.norm_mlp_residual_stats
+        shift_fn = shift_ops.shift_tokens_plain if plain else shift_ops.shift_tokens
+        xs = shift_fn(xt, h, w, ws, shift) if shift else xt
+        y, ys, yq = attn_half(xs, wa, ba, wqkv, bqkv, wproj, bproj, bias_mask, nh, n)
         if shift:
-            y = shift_ops.shift_tokens(y, h, w, ws, shift, inverse=True)
+            y = shift_fn(y, h, w, ws, shift, inverse=True)
         wm, bm = sb.fold_stats((ys, yq), self.norm2.weight, self.norm2.bias, t)
-        return sb.norm_mlp_residual_stats(y, wm, bm, w1, b1, w2, b2)
+        return mlp_half(y, wm, bm, w1, b1, w2, b2)
 
 
 class _Proj(nn.Module):
@@ -214,13 +229,14 @@ class BasicLayer(nn.Module):
 
     def __init__(self, in_chans: int, embed_dim: int, num_heads: int, window_size: int,
                  depth: int = 2, build_resolution: int = 64, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool | None = None):
         super().__init__()
         self.ws = build_resolution if build_resolution <= window_size else window_size
         self.patch_embed = _Proj(in_chans, embed_dim, dtype)
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(embed_dim, build_resolution, num_heads, window_size,
-                                 shift=(i % 2 == 1), mlp_ratio=mlp_ratio, dtype=dtype)
+                                 shift=(i % 2 == 1), mlp_ratio=mlp_ratio, dtype=dtype,
+                                 use_pallas=use_pallas)
             for i in range(depth)])
         self.patch_unembed = _Proj(embed_dim, in_chans, dtype)
 

@@ -11,9 +11,13 @@
     channels, SiLU, stride-2 conv to twice that), else as it is, and is
     channel-concatenated with x_t;
   * the head (GN, SiLU, 3x3 conv) runs in the input dtype, float32.
-`use_pallas=True` (the config key `model.use_pallas`) launches kernel F in
-the head, as the JAX package's pin launches K8 there; off by default.  The
-Swin blocks take kernels A, B and E on a CUDA tensor whatever the pin.
+`use_pallas` (the config key `model.use_pallas`) is the JAX package's
+tri-state pin: None (the default) launches kernels A, B and E in the Swin
+blocks on a CUDA tensor and leaves kernel F off; True launches F in the
+head as well, as the JAX pin launches K8 there; False runs the plain
+composition on every device, with no kernel at all (what the JAX trainer
+trains through).  `clone(use_pallas=...)` gives a module that shares every
+parameter with this one under another pin.
 `size_multiple` is the latent side that the downsamplings and the Swin
 windows divide.
 Module names follow the reference's state_dict (input_blocks.N.M, ...).
@@ -21,6 +25,8 @@ Module names follow the reference's state_dict (input_blocks.N.M, ...).
 
 from __future__ import annotations
 
+import copy
+import itertools
 import math
 from typing import Sequence
 
@@ -45,7 +51,7 @@ class UNetModelSwin(nn.Module):
                  swin_depth: int = 2, swin_embed_dim: int = 192, window_size: int = 8,
                  mlp_ratio: float = 4.0, patch_norm: bool = False, cond_lq: bool = True,
                  cond_mask: bool = False, lq_size: int = 64,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool | None = None):
         super().__init__()
         if resblock_updown or patch_norm or not conv_resample or not use_scale_shift_norm:
             raise NotImplementedError(
@@ -56,7 +62,7 @@ class UNetModelSwin(nn.Module):
         mc, ted = model_channels, model_channels * 4
         heads = num_heads if num_head_channels == -1 else swin_embed_dim // num_head_channels
         self.dtype, self.model_channels = dtype, model_channels
-        self.use_pallas = bool(use_pallas)
+        self.use_pallas = use_pallas
         self.cond_lq, self.cond_mask = cond_lq, cond_mask
         self.size_multiple = 2 ** (len(channel_mult) - 1)
 
@@ -65,7 +71,8 @@ class UNetModelSwin(nn.Module):
             self.size_multiple = math.lcm(self.size_multiple,
                                           image_size // ds * min(window_size, ds))
             return BasicLayer(ch, swin_embed_dim, heads, window_size, swin_depth,
-                              build_resolution=ds, mlp_ratio=mlp_ratio, dtype=dtype)
+                              build_resolution=ds, mlp_ratio=mlp_ratio, dtype=dtype,
+                              use_pallas=use_pallas)
 
         def res(cin, cout):
             return ResBlock(cin, ted, dropout, cout, dtype=dtype)
@@ -119,6 +126,18 @@ class UNetModelSwin(nn.Module):
         nn.init.zeros_(self.out[2].weight)
         nn.init.zeros_(self.out[2].bias)
 
+    def clone(self, use_pallas: bool | None) -> "UNetModelSwin":
+        """This module under the pin `use_pallas`: new module objects holding
+        the same parameter and buffer tensors (an update of either is an
+        update of both), as Flax's `clone(use_pallas=...)` keeps one param
+        tree.  Its train/eval mode is its own."""
+        memo = {id(t): t for t in itertools.chain(self.parameters(), self.buffers())}
+        other = copy.deepcopy(self, memo)
+        for mod in other.modules():
+            if hasattr(mod, "use_pallas"):
+                mod.use_pallas = use_pallas
+        return other
+
     @staticmethod
     def _run(layers: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         for layer in layers:
@@ -157,5 +176,6 @@ class UNetModelSwin(nn.Module):
             h = self._run(blk, torch.cat([h, hs.pop()], dim=1), emb)
         h = h.to(in_dtype).float()
         out = tail.gn_silu_conv3x3(h, self.out[0].weight, self.out[0].bias, self.out[2].weight,
-                                   self.out[2].bias, eps=1e-5, use_pallas=self.use_pallas)
+                                   self.out[2].bias, eps=1e-5,
+                                   use_pallas=self.use_pallas is True)
         return out.permute(0, 2, 3, 1)

@@ -183,7 +183,8 @@ class Decoder(nn.Module):
 
 
 class VectorQuantizer(nn.Module):
-    """L2-nearest codebook entry with the straight-through form z + (q - z)."""
+    """L2-nearest codebook entry with the straight-through form
+    z + stop_gradient(q - z)."""
 
     def __init__(self, n_e: int = 8192, e_dim: int = 3):
         super().__init__()
@@ -197,7 +198,9 @@ class VectorQuantizer(nn.Module):
         emb = self.embedding.weight.float()
         idx = vq.nearest_codebook_indices(zf.reshape(-1, self.e_dim), emb)
         z_q = emb[idx].reshape(zf.shape)
-        return (zf + (z_q - zf)).to(z.dtype)
+        # straight-through: the value of z_q, the gradient of z (identity);
+        # the codebook gets none, as JAX's stop_gradient gives
+        return (zf + (z_q - zf).detach()).to(z.dtype)
 
 
 class VQModel(nn.Module):

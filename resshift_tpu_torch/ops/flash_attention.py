@@ -5,7 +5,10 @@ in two routes, chosen by dtype: bf16 (the main path's) on the tensor cores
 (`flash_attn_1h_tc`, csrc/flash_attn_1h_tc.cu), f32 on the FMA units
 (`flash_attn_1h`, csrc/flash_attn_1h.cu).  The wrapper runs the plain
 PyTorch version for a CPU tensor, launches the kernel of the tensor's
-dtype for a CUDA tensor, and raises for anything else.
+dtype for a CUDA tensor, and raises for anything else.  The JAX package
+gives K5 no VJP, and C has no backward either: a launch that autograd
+would record (grad mode on and an input requiring grad) raises
+RuntimeError instead of returning a detached tensor.
 """
 
 from __future__ import annotations
@@ -48,6 +51,14 @@ def flash_attention_1h(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tor
         return attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise RuntimeError(f"no kernel for device {q.device}")
+    return _kernel(q, k, v)
+
+
+def _kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Launch C on CUDA tensors; refuses a call that autograd would record."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attn_1h has no backward (nor has the JAX package's K5): "
+                           "call it under torch.no_grad(), as the frozen VQGAN runs")
     b, n, c = q.shape
     if k.shape != q.shape or v.shape != q.shape or c != 512:
         raise ValueError(f"flash_attn_1h takes (B, N, 512) q, k, v; got {tuple(q.shape)}")

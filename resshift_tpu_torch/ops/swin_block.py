@@ -13,10 +13,14 @@ by dtype: bf16 (the main path's) on the tensor cores, f32 on the FMA units.
   * B replaces `_norm_mlp_residual_fwd_pallas` (K2) and
     `_mlp_unshift_fwd_pallas` (K4, the unshifted write): `swin_mlp_tc` in
     bf16, `swin_mlp` in f32.
-Each wrapper runs the plain PyTorch version for a CPU tensor, launches the
-kernel for a CUDA tensor, and raises for anything else.  The plain
-versions repeat the JAX package's `*_xla` compositions op for op,
-including where they round to the activation dtype.
+Each wrapper runs the plain PyTorch version for a CPU tensor, launches
+the kernel for a CUDA tensor, and raises for anything else.  A launch carries the plain version's
+gradient (`_ext.Recompute`: the backward recomputes the plain version
+under autograd), as the JAX package's custom VJPs `_nars_bwd`,
+`_sars_bwd`, `_nmrs_bwd` and `_murs_bwd` recompute the `*_xla`
+compositions; every output (y and both statistics) is differentiable.
+The plain versions repeat the JAX package's `*_xla` compositions op for
+op, including where they round to the activation dtype.
 """
 
 from __future__ import annotations
@@ -272,7 +276,9 @@ def norm_attn_residual_stats(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_h
     if _on_cpu(x):
         return norm_attn_residual_stats_plain(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask,
                                               num_heads, n_win)
-    return _attn_kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win, None)
+    return _ext.Recompute.launch(functools.partial(_attn_kernel, geom=None),
+                                norm_attn_residual_stats_plain, x, w, b, wqkv, bqkv, wproj,
+                                bproj, bias_mask, num_heads, n_win)
 
 
 def shift_attn_residual_stats(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win,
@@ -282,15 +288,18 @@ def shift_attn_residual_stats(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_
     if _on_cpu(x):
         return shift_attn_residual_stats_plain(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask,
                                                num_heads, n_win, h, wd, ws, shift)
-    return _attn_kernel(x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win,
-                        (h, wd, ws, shift))
+    kernel = functools.partial(_attn_kernel, geom=(h, wd, ws, shift))
+    return _ext.Recompute.launch(lambda *a: kernel(*a[:10]), shift_attn_residual_stats_plain,
+                                x, w, b, wqkv, bqkv, wproj, bproj, bias_mask, num_heads, n_win,
+                                h, wd, ws, shift)
 
 
 def norm_mlp_residual_stats(x, w, b, w1, b1, w2, b2):
     """Fused GN-affine + fc1 + exact GELU + fc2 + residual + stats."""
     if _on_cpu(x):
         return norm_mlp_residual_stats_plain(x, w, b, w1, b1, w2, b2)
-    return _mlp_kernel(x, w, b, w1, b1, w2, b2, None)
+    return _ext.Recompute.launch(functools.partial(_mlp_kernel, geom=None),
+                                norm_mlp_residual_stats_plain, x, w, b, w1, b1, w2, b2)
 
 
 def mlp_unshift_residual_stats(y, w, b, w1, b1, w2, b2, h, wd, ws, shift):
@@ -298,4 +307,6 @@ def mlp_unshift_residual_stats(y, w, b, w1, b1, w2, b2, h, wd, ws, shift):
     unshifted layout."""
     if _on_cpu(y):
         return mlp_unshift_residual_stats_plain(y, w, b, w1, b1, w2, b2, h, wd, ws, shift)
-    return _mlp_kernel(y, w, b, w1, b1, w2, b2, (h, wd, ws, shift))
+    kernel = functools.partial(_mlp_kernel, geom=(h, wd, ws, shift))
+    return _ext.Recompute.launch(lambda *a: kernel(*a[:7]), mlp_unshift_residual_stats_plain,
+                                y, w, b, w1, b1, w2, b2, h, wd, ws, shift)

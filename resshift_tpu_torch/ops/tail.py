@@ -17,7 +17,9 @@ kernels, each with its launch counter:
 default: `use_pallas=True` launches it for a CUDA tensor; otherwise the
 plain composition runs (`group_norm_fold`, then `gn_silu_conv3x3_plain`),
 the JAX package's default route.  A CPU tensor always takes the plain
-version.
+version.  A launch carries the plain composition's gradient
+(`_ext.Recompute`), as the JAX package's `_fused_bwd` calls `jax.vjp` of
+`tail_pallas._reference`.
 
 Rounding points (the JAX package's `tail_pallas._reference`): in bf16 the
 affine result rounds to bf16; the SiLU runs on that value as
@@ -170,7 +172,13 @@ def gn_silu_conv3x3(x: torch.Tensor, gn_scale, gn_bias, weight, bias, *, num_gro
     (`gn_stats`, then the route `tail_route` picks), and then co > 8 or
     another dtype raises."""
     route = tail_route(x.device.type, x.dtype, x.shape[1], weight.shape[0], use_pallas)
-    if route == "plain":
+
+    def plain(x, gn_scale, gn_bias, weight, bias):
         w, b = group_norm_fold(x, gn_scale, gn_bias, num_groups, eps)
         return gn_silu_conv3x3_plain(x, w, b, weight, bias)
-    return _kernel(route, x, gn_scale, gn_bias, weight, bias, num_groups, eps)
+
+    if route == "plain":
+        return plain(x, gn_scale, gn_bias, weight, bias)
+    return _ext.Recompute.launch(
+        lambda *a: _kernel(route, *a, num_groups, eps), plain, x, gn_scale, gn_bias, weight,
+        bias)

@@ -11,9 +11,9 @@ f32, and bf16 at other head widths, run the FMA kernel `window_attn`
 which ran.  `models/swin.py::WindowAttention` and `tools/profile_unet.py`
 reach it.  The wrapper runs the plain PyTorch version for a CPU tensor,
 launches the route's kernel for a CUDA tensor, and raises for anything
-else.  The gradient is a `torch.autograd.Function` whose backward
-recomputes through the plain version, as the JAX package's custom VJP
-recomputes through XLA.
+else.  The gradient is `_ext.Recompute`'s: the backward recomputes
+through the plain version, as the JAX package's custom VJP recomputes
+through XLA.
 
 Rounding points (the JAX package's `xla_window_attention`): qkv and proj
 round their product to the activation dtype before adding the bias; q is
@@ -30,7 +30,7 @@ from .. import _ext
 from .._ext import I, P
 
 __all__ = ["window_attention_plain", "window_attention", "window_attn_route", "tc_body_route",
-           "WindowAttentionFn", "WINDOW_ATTN", "WINDOW_ATTN_TC"]
+           "WINDOW_ATTN", "WINDOW_ATTN_TC"]
 
 WINDOW_ATTN = _ext.Kernel("window_attn", [P] * 7 + [I] * 6)
 WINDOW_ATTN_TC = _ext.Kernel("window_attn_tc", [P] * 7 + [I] * 5)
@@ -118,31 +118,10 @@ def _forward(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads):
     return _kernel(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads)
 
 
-class WindowAttentionFn(torch.autograd.Function):
-    """Forward: the route's kernel on a CUDA tensor, the plain version on a
-    CPU one.
-    Backward: the plain version's gradients, recomputed under autograd."""
-
-    @staticmethod
-    def forward(ctx, xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: int):
-        ctx.save_for_backward(xw, wqkv, bqkv, wproj, bproj, bias_mask)
-        ctx.num_heads = num_heads
-        return _forward(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        ins = [t.detach().requires_grad_(need)
-               for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in ins if t.requires_grad]
-        with torch.enable_grad():
-            y = window_attention_plain(*ins, ctx.num_heads)
-            grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
-        return (*(next(grads) if t.requires_grad else None for t in ins), None)
-
-
 def window_attention(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads: int) -> torch.Tensor:
     """Windowed multi-head attention with a custom gradient.  xw: (M, N, C)
     f32 or bf16 tokens of M windows; the weights in xw's dtype (cast if
     not); bias_mask (nW or 1, nh, N, N) additive f32 (rel-pos bias, plus the
     shifted-window mask)."""
-    return WindowAttentionFn.apply(xw, wqkv, bqkv, wproj, bproj, bias_mask, num_heads)
+    return _ext.Recompute.launch(_forward, window_attention_plain, xw, wqkv, bqkv, wproj, bproj,
+                                 bias_mask, num_heads)

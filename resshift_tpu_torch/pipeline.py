@@ -13,8 +13,9 @@ overlapping tile grid, their masks (inpainting) through the same grid.
   * A UNet with an LQ feature pyramid (lq_size != image_size: x2 SR,
     inpainting, faceir) gets its features once per call, not once per step.
   * A config's `model.use_pallas: true` launches kernel F in the UNet head
-    (the JAX package's pin) and `autoencoder.use_pallas: true` in the VQGAN
-    decoder tail (a key of this package only).
+    (the JAX package's pin; `false` pins the UNet to the plain composition,
+    with no kernel) and `autoencoder.use_pallas: true` in the VQGAN decoder
+    tail (a key of this package only).
   * `diffusion.variant: ddpm` swaps the residual-shifting chain for classic
     DDPM (`sampler: ancestral`) or DDIM (`sampler: ddim`, with `eta`) from
     pure noise at the latent shape, the LQ image conditioning the UNet
@@ -33,6 +34,7 @@ from __future__ import annotations
 
 import copy
 import math
+import os
 
 import torch
 import torch.nn as nn
@@ -48,7 +50,7 @@ from .models.vqgan import VQModel
 from .ops.resize import resize
 from .ops.tiling import TileGrid
 
-__all__ = ["ResShiftPipeline", "resolve_device"]
+__all__ = ["ResShiftPipeline", "load_pth", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -83,6 +85,22 @@ def _init_(module: nn.Module, generator: torch.Generator) -> None:
     for name, p in module.named_parameters():
         if name.endswith("relative_position_bias_table"):
             draw(p, torch.randn(p.shape, generator=generator).clamp_(-2, 2) * 0.02)
+
+
+def load_pth(module: nn.Module, path: str) -> None:
+    """Load a released `.pth` (reference layout) into `module`: the keys it
+    has, the file's others ignored; a key it needs and the file lacks
+    raises.  A directory (the JAX package's orbax format) raises."""
+    from .convert import load_torch_state_dict
+
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory (an orbax checkpoint of the JAX package?); "
+                         f"this port reads released .pth files")
+    sd = load_torch_state_dict(path)
+    missing = [k for k in module.state_dict() if k not in sd]
+    if missing:
+        raise KeyError(f"{path} lacks {len(missing)} keys, e.g. {missing[:3]}")
+    module.load_state_dict({k: torch.as_tensor(sd[k]) for k in module.state_dict()})
 
 
 class ResShiftPipeline:
@@ -162,18 +180,11 @@ class ResShiftPipeline:
         reads the keys the models have and ignores the rest (derived buffers
         such as `relative_position_index` and `attn_mask`, training-only
         entries); a key the models need and the file lacks raises."""
-        from .convert import load_torch_state_dict
-
         if self.vq is not None and vqgan_path is None:
             raise ValueError("this task has a VQGAN: give its checkpoint too")
         for mod, path in ((self.unet, unet_path), (self.vq, vqgan_path)):
-            if mod is None:
-                continue
-            sd = load_torch_state_dict(path)
-            missing = [k for k in mod.state_dict() if k not in sd]
-            if missing:
-                raise KeyError(f"{path} lacks {len(missing)} keys, e.g. {missing[:3]}")
-            mod.load_state_dict({k: torch.as_tensor(sd[k]) for k in mod.state_dict()})
+            if mod is not None:
+                load_pth(mod, path)
         self._compute = None
 
     def _compute_params(self) -> tuple[nn.Module, nn.Module | None]:
@@ -196,9 +207,11 @@ class ResShiftPipeline:
 
     # ------------------------------------------------------------- core
 
-    def _encode(self, vq: nn.Module | None, y: torch.Tensor) -> torch.Tensor:
-        """Bicubic x sf upsample, then the VQGAN encoder (pre-quantization)."""
-        if self.sf != 1:
+    def _encode(self, vq: nn.Module | None, y: torch.Tensor,
+                up_sample: bool = True) -> torch.Tensor:
+        """Bicubic x sf upsample (unless `up_sample` is off: the trainer's
+        GT), then the VQGAN encoder (pre-quantization)."""
+        if up_sample and self.sf != 1:
             _, h, w, _ = y.shape
             y = resize(y, (h * self.sf, w * self.sf))
         if vq is None:

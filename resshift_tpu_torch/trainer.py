@@ -1,0 +1,248 @@
+"""The train step: AdamW with a warmup-then-cosine (or constant) learning
+rate, an EMA of the weights, microbatch accumulation, rematerialisation.
+
+One `TrainStep` call takes a batch {'gt', 'lq'[, 'mask']} in [-1, 1] (NHWC,
+on the pipeline's device) and, per microbatch:
+  * encodes both images with the frozen VQGAN under `torch.no_grad()` (the
+    JAX package's stop_gradient; kernel C launches there on the card);
+  * draws t ~ U[0, T) and the q_sample noise from `generator` (or takes
+    them from `draws`, one (t, noise) pair a microbatch, as a test feeds
+    the JAX package's);
+  * runs the UNet pinned `use_pallas=False` (the plain composition, as the
+    JAX trainer's `clone(use_pallas=False)`: the kernels' backward would
+    recompute it anyway) in train mode, so dropout is live;
+  * backpropagates the mean latent MSE (`diffusion.resshift.training_losses`).
+The gradient is the mean over the microbatches; then the learning rate of
+the step is set, `torch.optim.AdamW` steps (its update is optax.adamw's),
+and the EMA follows.  Metrics: loss, mse, the per-timestep buckets
+(t = 0, T // 2, T - 1), lr and the global gradient norm, as 0-d tensors.
+`remat` ("dots": keep matmul and conv outputs, recompute the elementwise
+chains; "full": keep nothing) wraps the UNet in `torch.utils.checkpoint`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from .diffusion import resshift as rs
+from .pipeline import ResShiftPipeline
+
+__all__ = ["TrainConfig", "TrainStep", "lr_schedule_fn"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    lr: float = 5e-5
+    lr_min: float = 2e-5
+    lr_schedule: str | None = "cosin"
+    warmup_iterations: int = 5000
+    iterations: int = 300000
+    weight_decay: float = 0.0
+    ema_rate: float = 0.999
+    microbatch: int | None = None  # None: no accumulation
+    weighted_mse: bool = False
+    loss_coef: tuple[float, float] = (1.0, 1.0)  # (mse, lpips)
+    remat: str | None = None  # None, "dots" or "full"
+    fsdp: bool = False
+
+    @classmethod
+    def from_config(cls, config: dict) -> "TrainConfig":
+        """The `train:` block of a task config (`weighted_mse` may also sit
+        under `diffusion:`, where the reference reads it)."""
+        t = dict(config.get("train") or {})
+        return cls(
+            lr=float(t.get("lr", 5e-5)), lr_min=float(t.get("lr_min", 2e-5)),
+            lr_schedule=t.get("lr_schedule"),
+            warmup_iterations=int(t.get("warmup_iterations", 5000)),
+            iterations=int(t.get("iterations", 300000)),
+            weight_decay=float(t.get("weight_decay", 0.0)),
+            ema_rate=float(t.get("ema_rate", 0.999)), microbatch=t.get("microbatch"),
+            weighted_mse=bool(t.get("weighted_mse",
+                                    (config.get("diffusion") or {}).get("weighted_mse", False))),
+            loss_coef=tuple(t.get("loss_coef", (1.0, 1.0))), remat=t.get("remat"),
+            fsdp=bool(t.get("fsdp", False)))
+
+
+def lr_schedule_fn(cfg: TrainConfig) -> Callable[[int], float]:
+    """Step -> learning rate: linear warmup over `warmup_iterations`, then a
+    cosine from lr to lr_min over `iterations` (`lr_schedule: cosin`) or
+    constant; in float32, as the JAX package computes it."""
+    f32 = np.float32
+
+    def fn(step: int) -> float:
+        s = f32(step)
+        warm = min(f32(1.0), (s + f32(1)) / f32(max(cfg.warmup_iterations, 1)))
+        if cfg.lr_schedule == "cosin":
+            prog = np.clip(s / f32(max(cfg.iterations, 1)), f32(0), f32(1))
+            base = f32(cfg.lr_min) + f32(0.5) * (f32(cfg.lr) - f32(cfg.lr_min)) * (
+                f32(1) + np.cos(f32(math.pi) * prog))
+        else:
+            base = f32(cfg.lr)
+        return float(f32(base * warm))
+
+    return fn
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.baddbmm.default, torch.ops.aten.convolution.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+class TrainStep:
+    """The train state (the UNet's parameters, AdamW, the EMA, the step) and
+    its update.  The parameters are `pipe.unet`'s own (float32 masters,
+    cast to the compute dtype at use); the VQGAN stays frozen."""
+
+    def __init__(self, pipe: ResShiftPipeline, cfg: TrainConfig):
+        if cfg.fsdp:
+            raise NotImplementedError("train.fsdp needs several cards (ROADMAP.md section 1, "
+                                      "multi-GPU)")
+        if cfg.remat not in (None, "dots", "full"):
+            raise ValueError(f"remat must be 'dots', 'full' or null, got {cfg.remat!r}")
+        self.pipe, self.cfg = pipe, cfg
+        self.lr_fn = lr_schedule_fn(cfg)
+        self.train_unet = pipe.unet.clone(use_pallas=False).train()
+        self.named = list(pipe.unet.named_parameters())
+        if pipe.vq is not None:
+            pipe.vq.requires_grad_(False)
+        params = [p for _, p in self.named]
+        self.opt = torch.optim.AdamW(params, lr=self.lr_fn(0), betas=(0.9, 0.999), eps=1e-8,
+                                     weight_decay=cfg.weight_decay)
+        self.ema = {n: p.detach().clone() for n, p in self.named}
+        self.step = 0
+        self.use_dropout = any(isinstance(m, torch.nn.Dropout) and m.p > 0
+                               for m in self.train_unet.modules())
+
+    # ------------------------------------------------------------- the loss
+
+    def _model(self, x, t, **kw):
+        if not self.cfg.remat:
+            return self.train_unet(x, t, **kw)
+        keys = list(kw)
+        fn = lambda x, t, *vals: self.train_unet(x, t, **dict(zip(keys, vals)))
+        extra = ({} if self.cfg.remat == "full" else
+                 {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                                  _save_dots)})
+        return checkpoint(fn, x, t, *kw.values(), use_reentrant=False, **extra)
+
+    def encode(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(z_y, z0): the LQ upsampled and encoded, the GT encoded; no graph."""
+        with torch.no_grad():
+            return (self.pipe._encode(self.pipe.vq, batch["lq"]),
+                    self.pipe._encode(self.pipe.vq, batch["gt"], up_sample=False))
+
+    def loss(self, batch: dict, generator: torch.Generator | None, draws=None):
+        """One microbatch: (loss with its graph, detached metrics)."""
+        pipe, sched = self.pipe, self.pipe.sched
+        z_y, z0 = self.encode(batch)
+        if draws is None:
+            t = torch.randint(0, sched.num_timesteps, (z0.shape[0],), generator=generator,
+                              device=z0.device)
+            noise = torch.randn(z0.shape, generator=generator, device=z0.device)
+        else:
+            t, noise = (torch.as_tensor(d).to(z0.device) for d in draws)
+            t = t.long()
+        kw = {}
+        if pipe.cond_lq:
+            kw["lq"] = batch["lq"]
+        if pipe.cond_mask and "mask" in batch:
+            kw["mask"] = batch["mask"]
+        mse, _, _ = rs.training_losses(sched, self._model, z0, z_y, t, noise, model_kwargs=kw,
+                                       weighted_mse=self.cfg.weighted_mse)
+        loss = mse.mean() * self.cfg.loss_coef[0]
+        mse = mse.detach()
+        metrics = {"mse": mse.mean()}
+        for name, tt in (("loss_t0", 0), ("loss_tmid", sched.num_timesteps // 2),
+                         ("loss_tlast", sched.num_timesteps - 1)):
+            sel = (t == tt).float()
+            metrics[name] = (mse * sel).sum() / sel.sum().clamp(min=1.0)
+        metrics["loss"] = loss.detach()
+        return loss, metrics
+
+    # ------------------------------------------------------------- the step
+
+    def grads(self, batch: dict, generator: torch.Generator | None = None, draws=None):
+        """The mean gradient over the microbatches into each parameter's
+        `.grad` (zeros where a parameter has none); returns the metrics."""
+        b = batch["gt"].shape[0]
+        mb = int(self.cfg.microbatch or b)
+        if b % mb:  # the JAX step's reshape to (n_micro, microbatch) fails there too
+            raise ValueError(f"batch {b} is not a multiple of the microbatch {mb}")
+        n_micro = b // mb
+        for _, p in self.named:
+            p.grad = None
+        sums: dict[str, torch.Tensor] = {}
+        for i in range(n_micro):
+            part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            with torch.random.fork_rng(devices=[part["gt"].device] if part["gt"].is_cuda else [],
+                                       enabled=self.use_dropout):
+                if self.use_dropout:  # a seed from the step's generator: resumes exactly
+                    dev = None if generator is None else generator.device
+                    torch.manual_seed(int(torch.randint(2**62, (1,), generator=generator,
+                                                        device=dev)))
+                loss, metrics = self.loss(part, generator, None if draws is None else draws[i])
+                loss.backward()
+            for k, v in metrics.items():
+                sums[k] = sums[k] + v if k in sums else v
+        for _, p in self.named:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif n_micro > 1:
+                p.grad.div_(n_micro)
+        return {k: v / n_micro for k, v in sums.items()}
+
+    def __call__(self, batch: dict, generator: torch.Generator | None = None, draws=None):
+        """One optimisation step; returns the metrics (0-d tensors)."""
+        metrics = self.grads(batch, generator, draws)
+        params = [p for _, p in self.named]
+        grads = [p.grad for p in params]
+        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        lr = self.lr_fn(self.step)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        r = self.cfg.ema_rate
+        with torch.no_grad():
+            ema = list(self.ema.values())
+            torch._foreach_mul_(ema, r)
+            torch._foreach_add_(ema, torch._foreach_mul(params, 1 - r))
+        self.step += 1
+        metrics["lr"] = torch.tensor(lr)
+        return metrics
+
+    # ------------------------------------------------------------ the state
+
+    def state_dict(self) -> dict:
+        """{'step', 'params', 'ema', 'exp_avg', 'exp_avg_sq'}, the last four
+        name -> tensor (references: `checkpoint.AsyncSaver` copies them)."""
+        st = self.opt.state
+        moments = {k: {n: st[p][k] for n, p in self.named if p in st}
+                   for k in ("exp_avg", "exp_avg_sq")}
+        return {"step": self.step, "params": {n: p.detach() for n, p in self.named},
+                "ema": dict(self.ema), **moments}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore a `state_dict` (from this class or `convert.train_state_from_flax`)."""
+        self.step = int(sd["step"])
+        for n, p in self.named:
+            p.copy_(torch.as_tensor(sd["params"][n]))
+            self.ema[n].copy_(torch.as_tensor(sd["ema"][n]))
+            self.opt.state.pop(p, None)
+            if self.step and n in sd.get("exp_avg", {}):
+                self.opt.state[p] = {
+                    "step": torch.tensor(float(self.step)),
+                    "exp_avg": torch.as_tensor(sd["exp_avg"][n]).to(p.device, p.dtype).clone(),
+                    "exp_avg_sq": torch.as_tensor(sd["exp_avg_sq"][n]).to(p.device,
+                                                                          p.dtype).clone()}

@@ -21,7 +21,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["IM_EXTS", "imread", "imwrite", "list_images", "to_model", "from_model",
-           "png_decode", "png_encode"]
+           "make_grid", "png_decode", "png_encode"]
 
 IM_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".JPEG", ".PNG", ".JPG")
 _NO_CV2 = "needs OpenCV (the cv2 module of opencv-python), which is not installed"
@@ -219,3 +219,18 @@ def to_model(im: np.ndarray) -> np.ndarray:
 def from_model(x: np.ndarray) -> np.ndarray:
     """NHWC [-1, 1] -> NHWC [0, 1]."""
     return np.clip(np.asarray(x, dtype=np.float32) * 0.5 + 0.5, 0.0, 1.0)
+
+
+def make_grid(ims: np.ndarray, ncol: int = 8, pad: int = 2) -> np.ndarray:
+    """A batch NHWC in [0, 1] tiled into one HWC image, `ncol` to a row,
+    `pad` white pixels between and around the tiles."""
+    ims = np.asarray(ims, np.float32)
+    n, h, w, c = ims.shape
+    ncol = min(ncol, n)
+    nrow = (n + ncol - 1) // ncol
+    grid = np.ones((nrow * (h + pad) + pad, ncol * (w + pad) + pad, c), np.float32)
+    for i in range(n):
+        r, col = divmod(i, ncol)
+        y0, x0 = pad + r * (h + pad), pad + col * (w + pad)
+        grid[y0:y0 + h, x0:x0 + w] = ims[i]
+    return grid

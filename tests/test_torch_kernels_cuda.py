@@ -14,7 +14,10 @@ which splits the codebook across CTAs, ragged rows and slices and exact
 ties across slices; for F, its statistics pass `gn_stats` against the plain
 fold, and both conv routes (bf16 at C % 16 == 0 on the tensor cores, else
 the FMA kernel with its channels split across CTAs), which route ran, two
-calls' bits, and how many bf16 elements differ from the plain version.
+calls' bits, and how many bf16 elements differ from the plain version;
+and the backward passes: A's, B's and F's gradients (their autograd
+Functions) against the plain versions', E's (E inverted) bit for bit, and
+C refusing a launch that autograd would record.
 
 Needs a CUDA card and nvcc; skips elsewhere.  Where there is a card, run
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
@@ -607,3 +610,96 @@ def test_wrappers_raise_on_unsupported_shapes(gen):
     with pytest.raises(ValueError):  # 72 tokens are no whole number of 16-token windows
         av.attn_variant(torch.zeros(1, 72, 32, device="cuda"), aw, ab, *attn_w,
                         torch.zeros(1, 2, 16, 16, device="cuda"), 2, 16)
+
+
+def _backward_pair(fn, plain, ins, gen):
+    """The gradients of sum(out * r) over every output, through `fn` and
+    through `plain`, for every floating input."""
+    ins = [t.detach().requires_grad_(True) if t.is_floating_point() else t for t in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    rs = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
+    wanted = [t for t in ins if t.requires_grad]
+    got = torch.autograd.grad(sum((o.float() * r).sum() for o, r in zip(outs, rs)), wanted)
+    pouts = plain(*ins)
+    pouts = pouts if isinstance(pouts, tuple) else (pouts,)
+    want = torch.autograd.grad(sum((o.float() * r).sum() for o, r in zip(pouts, rs)), wanted)
+    return got, want
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 2])
+def test_swin_halves_backward(gen, dt, shift):
+    """A's and B's autograd Functions: the kernel forward launches once, and
+    every input's gradient is the plain version's (the backward recomputes
+    it; only the order of its scatter-adds may differ)."""
+    b, h, w, ws, c, nh, hidden = 2, 8, 12, 4, 64, 2, 128
+    t, n = h * w, ws * ws
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    x = rn(b, t, c).to(dt)
+    wa_, ba_ = sb.gn_fold(x, 1 + 0.1 * rn(c), 0.1 * rn(c))
+    wts = [(rn(c, 3 * c) / c ** 0.5).to(dt), (0.1 * rn(3 * c)).to(dt),
+           (rn(c, c) / c ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+    mlp = [(rn(c, hidden) / c ** 0.5).to(dt), (0.1 * rn(hidden)).to(dt),
+           (rn(hidden, c) / hidden ** 0.5).to(dt), (0.1 * rn(c)).to(dt)]
+    nw = (h // ws) * (w // ws) if shift else 1
+    bm = 0.02 * rn(nw, nh, n, n)
+    geo = (h, w, ws, shift)
+    if shift:
+        bm = bm + torch.as_tensor(shifted_window_mask(h, w, ws, shift), device="cuda")[:, None]
+        pairs = [(lambda *a: sb.shift_attn_residual_stats(*a, nh, n, *geo),
+                  lambda *a: sb.shift_attn_residual_stats_plain(*a, nh, n, *geo),
+                  [x, wa_, ba_, *wts, bm]),
+                 (lambda *a: sb.mlp_unshift_residual_stats(*a, *geo),
+                  lambda *a: sb.mlp_unshift_residual_stats_plain(*a, *geo), [x, wa_, ba_, *mlp])]
+    else:
+        pairs = [(lambda *a: sb.norm_attn_residual_stats(*a, nh, n),
+                  lambda *a: sb.norm_attn_residual_stats_plain(*a, nh, n),
+                  [x, wa_, ba_, *wts, bm]),
+                 (sb.norm_mlp_residual_stats, sb.norm_mlp_residual_stats_plain,
+                  [x, wa_, ba_, *mlp])]
+    for fn, plain, ins in pairs:
+        got, want = _backward_pair(fn, plain, ins, gen)
+        for a, b_ in zip(got, want):
+            _close(a, b_, dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_shift_tokens_backward_is_the_inverse_kernel(gen, dt, inverse):
+    """E's backward launches E with `inverse` flipped and equals the plain
+    gather's gradient bit for bit (a permutation)."""
+    h, w = 16, 24
+    x = torch.randn(2, h * w, 32, generator=gen, device="cuda").to(dt)
+    n0 = shift.SHIFT_TOKENS.launches
+    got, want = _backward_pair(lambda t: shift.shift_tokens(t, h, w, 8, 4, inverse),
+                               lambda t: shift.shift_tokens_plain(t, h, w, 8, 4, inverse),
+                               [x], gen)
+    assert shift.SHIFT_TOKENS.launches - n0 == 2
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("dt,c", [(torch.float32, 40), (torch.bfloat16, 64)])
+def test_gn_silu_conv3x3_backward(gen, dt, c):
+    """F's autograd Function: the gradients of x, the GroupNorm's scale and
+    bias, the conv's weight and bias are the plain composition's."""
+    rn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    b, h, w, co = 2, 12, 20, 3
+    ins = [(1.5 * rn(b, c, h, w) + 0.3).to(dt), 1 + 0.2 * rn(c), 0.5 + 0.3 * rn(c),
+           (rn(co, c, 3, 3) / (9 * c) ** 0.5).to(dt), (0.1 * rn(co)).to(dt)]
+    groups = _groups(c)
+    fn = lambda *a: tail.gn_silu_conv3x3(*a, num_groups=groups, eps=1e-6, use_pallas=True)
+    plain = lambda x, s, gb, wt, bi: tail.gn_silu_conv3x3_plain(
+        x, *tail.group_norm_fold(x, s, gb, groups, 1e-6), wt, bi)
+    got, want = _backward_pair(fn, plain, ins, gen)
+    for a, b_ in zip(got, want):
+        _close(a, b_, dt)
+
+
+def test_flash_attention_refuses_autograd(gen):
+    """C has no backward: a launch that autograd would record raises."""
+    q = torch.randn(1, 64, 512, generator=gen, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_1h(q, q, q)
+    with torch.no_grad():
+        assert fa.flash_attention_1h(q, q, q).shape == q.shape

@@ -277,21 +277,24 @@ def test_unchopped_wide_sample_matches_jax(monkeypatch, steps, min_noise_level):
 # ------------------------------------------------------------- hygiene
 
 def test_port_imports_no_jax_flax_yaml_or_jax_package():
-    # every module, the serving layer, DDPM and the load test among them
+    # every module, the serving layer, DDPM, the load test and training among them
     code = ("import sys, pkgutil, importlib, resshift_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'resshift_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "need = ['resshift_tpu_torch.' + m for m in ('serve', 'utils.observability', "
-            "'diffusion.ddpm', 'tools.serve_loadtest')]\n"
+            "'diffusion.ddpm', 'tools.serve_loadtest', 'train_loop', 'trainer', 'checkpoint', "
+            "'diffusion.losses', 'data.datasets', 'data.realesrgan', 'data.noise', "
+            "'data.degradations', 'ops.filters', 'ops.diffjpeg')]\n"
             "assert all(m in sys.modules for m in need), need\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'yaml', 'resshift_tpu')]\n"
+            "('jax', 'flax', 'optax', 'orbax', 'yaml', 'resshift_tpu')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    pat = re.compile(r"^\s*(from|import)\s+(resshift_tpu|jax|flax)\b(?!_torch)", re.M)
+    pat = re.compile(r"^\s*(from|import)\s+(resshift_tpu|jax|flax|optax|orbax)\b(?!_torch)",
+                     re.M)
     for f in (ROOT / "resshift_tpu_torch").rglob("*.py"):
         assert not pat.search(f.read_text()), f
 

@@ -63,7 +63,7 @@ def test_autograd_function_matches_jax_vjp():
     args = _inputs(5, m, n, c, nh, nw)
     g = np.random.default_rng(6).standard_normal((m, n, c)).astype(np.float32)
     ts = [torch.from_numpy(a).requires_grad_() for a in args]
-    y = twa.WindowAttentionFn.apply(*ts, nh)
+    y = twa.window_attention(*ts, nh)
     y.backward(torch.from_numpy(g))
     _, vjp = jax.vjp(lambda *a: swa.xla_window_attention(*a, num_heads=nh),
                      *[jnp.asarray(a) for a in args])
