@@ -126,6 +126,21 @@ bit;
      autograd Functions, `use_pallas` unset) against the plain composition
      (`use_pallas: false`): relative L2 <= 1e-3 in f32, the bf16 figure
      printed;
+ 18. the LPIPS trainer at full width, seeded random weights (LPIPS's too:
+     no weights ship), bf16 on f32 masters, batch 96 in microbatches of 12:
+     (a) configs/bicx4_swinunet_lpips.yaml (`bicsr_lpips_config`) on 96
+     seeded 288x288 PNGs through the `bicubic` loader (GT crops of 256),
+     3 iterations, then validation on 2 pairs; (b)
+     configs/inpaint_lama256_face.yaml (`inpaint_face_lpips_config`) on 96
+     320x288 PNGs through the `inpainting` loader (LaMa masks and
+     distortions on 8 threads), 2 iterations, then validation through
+     `inpainting_val`; each: loss, lpips and grad_norm finite (lpips > 0),
+     every UNet parameter with a nonzero gradient, C launched twice a
+     microbatch (the encodes, under no_grad) and nothing else in a step (the
+     decode under autograd is pinned plain: no C, no D), validation's
+     launches as `expected_launches` derives them, val_lpips; ms per
+     iteration split into the loader's wait and the step, images/s, the
+     loader's wait per batch, peak max_memory_allocated;
 then print the `kernels` JSON line (each kernel's `backward` and its phase-2
 backward error among its keys) and, last, the result line.
 Needs a CUDA card and the repository around this file.
@@ -973,6 +988,65 @@ def realsr_train_config(hq_dirs: list, val_lq: str, val_gt: str) -> dict:
     return cfg
 
 
+def counting(calls: dict, fn, key: str, read, reset):
+    """fn with the launches of each call (counts zeroed before it, read after
+    a synchronize) appended to calls[key]."""
+    import torch
+
+    def wrapped(*a, **k):
+        reset()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        calls.setdefault(key, []).append(read())
+        return out
+    return wrapped
+
+
+def bicsr_lpips_config(source: str, val_lq: str, val_gt: str) -> dict:
+    """configs/bicx4_swinunet_lpips.yaml as `load_yaml_config` gives it (the
+    bicsr task with the LPIPS trainer), with the data paths replaced and no
+    VQGAN or LPIPS weights (random: none may be downloaded): batch 96 in
+    microbatches of 12, GT crops of 256 and their x1/4 MATLAB bicubic."""
+    from resshift_tpu_torch.config import task_config
+
+    cfg = task_config("bicsr")
+    cfg["trainer"] = "difir_lpips"
+    cfg["autoencoder"]["ckpt_path"] = None
+    cfg["data"] = dict(
+        train=dict(type="bicubic", params=dict(
+            source_path=source, degrade_kwargs=dict(scale=0.25, pch_size=256),
+            transform_kwargs=dict(mean=0.5, std=0.5))),
+        val=dict(type="base", params=dict(dir_path=val_lq, extra_dir_path=val_gt)))
+    cfg["train"] = dict(lr="5e-5", lr_min="2e-5", lr_schedule="cosin", warmup_iterations=5000,
+                        batch=[96, 12], microbatch=12, iterations=300000, loss_coef=[1.0, 1.0],
+                        lpips_path=None, save_freq=10000, log_freq=[200, 2000])
+    return cfg
+
+
+def inpaint_face_lpips_config(images: str, val_lq: str, val_gt: str, val_mask: str) -> dict:
+    """configs/inpaint_lama256_face.yaml as `load_yaml_config` gives it, with
+    the data paths replaced and no VQGAN or LPIPS weights: LaMa distortions
+    and masks at 256, batch 96 in microbatches of 12."""
+    from resshift_tpu_torch.config import task_config
+
+    cfg = task_config("inpaint_face")
+    cfg["trainer"] = "difir_lpips"
+    cfg["autoencoder"]["ckpt_path"] = None
+    cfg["data"] = dict(
+        train=dict(type="inpainting", params=dict(
+            dir_path=images, pch_size=256, transform_type="lama_distortions",
+            mask_kwargs=dict(
+                irregular_proba=1, irregular_kwargs=dict(max_angle=4, max_len=200, max_width=100,
+                                                         max_times=5, min_times=1),
+                box_proba=1, box_kwargs=dict(margin=10, bbox_min_size=30, bbox_max_size=150,
+                                             max_times=4, min_times=1)))),
+        val=dict(type="inpainting_val", params=dict(lq_path=val_lq, gt_path=val_gt,
+                                                    mask_path=val_mask)))
+    cfg["train"] = dict(lr="5e-5", lr_schedule="cosin", batch=[96, 12], microbatch=12,
+                        iterations=400000, loss_coef=[1.0, 1.0], lpips_path=None)
+    return cfg
+
+
 def write_train_data(root: Path, n_hq: int, n_val: int, n_pairs: int) -> dict:
     """Seeded synthetic PNGs (smooth random fields, written by the port's
     codec): `n_hq` 320x320 HQ images, `n_val` 64 -> 256 validation pairs and
@@ -1013,16 +1087,8 @@ def train_phase(dev, card: str, all_kernels: dict, read_launches, reset, launche
     from resshift_tpu_torch.trainer import TrainConfig, TrainStep
 
     calls: dict[str, list] = {}
-
-    def counted(fn, key):
-        """fn with its launches kept, one entry a call, under calls[key]."""
-        def wrapped(*a, **k):
-            reset()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            calls.setdefault(key, []).append(read_launches(all_kernels, sb))
-            return out
-        return wrapped
+    counted = lambda fn, key: counting(calls, fn, key, lambda: read_launches(all_kernels, sb),
+                                       reset)
 
     tmp = tempfile.TemporaryDirectory()
     root = Path(tmp.name)
@@ -1068,11 +1134,7 @@ def train_phase(dev, card: str, all_kernels: dict, read_launches, reset, launche
     launches["17 step"] = calls["17 steps"][0]
     # validation: the progressive strip of the first pair, then one sample
     # call on both pairs (one shape group)
-    steps_t = tr.pipe.sched.num_timesteps
-    want = expected_launches(cfg, 64, 64)
-    for k in ("A", "B", "E", "fused shift"):
-        want[k] *= 2
-    want.update({"C": steps_t + 2 + 2, "D": steps_t + 1 + 1, "D finalize": steps_t + 1 + 1})
+    want = validation_launches(cfg, tr.pipe.sched.num_timesteps)
     (got,) = calls["17 validate"]
     print(f"  launches in validation: {got} (derived: {want})", flush=True)
     if got != want:
@@ -1162,6 +1224,125 @@ def train_phase(dev, card: str, all_kernels: dict, read_launches, reset, launche
             raise AssertionError(f"gradient with the kernels off by {rel} (relative L2)")
         result[f"grad_rel_l2_{tag}"] = rel
         del pipe, step, grads
+    tmp.cleanup()
+    return result
+
+
+def lpips_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict,
+                workers: int = 8):
+    """Phase 18: the LPIPS trainer at full width (see the module docstring).
+    Returns its figures."""
+    import numpy as np
+    import torch
+
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.ops.resize import resize_np
+    from resshift_tpu_torch.train_loop import Trainer
+    from resshift_tpu_torch.utils.image_io import imwrite
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    rng = np.random.default_rng(41)
+    dirs = {k: root / k for k in ("hq", "faces", "val_lq", "val_gt", "inp_lq", "inp_gt",
+                                  "inp_mask")}
+    for d in dirs.values():
+        d.mkdir()
+
+    def field(h, w):
+        return np.clip(resize_np(rng.uniform(0, 1, (h // 8, w // 8, 3)), (h, w), "bilinear")
+                       + rng.normal(0, 0.03, (h, w, 3)), 0, 1)
+
+    t1 = time.perf_counter()
+    for i in range(96):
+        imwrite(field(288, 288), dirs["hq"] / f"{i:03d}.png")
+        imwrite(field(320, 288), dirs["faces"] / f"{i:03d}.png")
+    for i in range(2):
+        gt = field(256, 256)
+        imwrite(gt, dirs["val_gt"] / f"{i:03d}.png")
+        imwrite(resize_np(gt, (64, 64), "bicubic_matlab"), dirs["val_lq"] / f"{i:03d}.png")
+        mask = np.zeros((256, 256))
+        mask[64 + 32 * i:160 + 32 * i, 48:208] = 1
+        imwrite(gt, dirs["inp_gt"] / f"{i:03d}.png")
+        imwrite(gt * (1 - mask[..., None]), dirs["inp_lq"] / f"{i:03d}.png")
+        imwrite(mask, dirs["inp_mask"] / f"{i:03d}.png")
+    print(f"  data: 96 HQ 288x288 and 96 face-sized 320x288 PNGs, 2 bicsr and 2 inpainting "
+          f"validation sets, written in {time.perf_counter() - t1:.1f} s", flush=True)
+    result = {}
+    for part, cfg in (
+            ("a", bicsr_lpips_config(str(dirs["hq"]), str(dirs["val_lq"]), str(dirs["val_gt"]))),
+            ("b", inpaint_face_lpips_config(str(dirs["faces"]), str(dirs["inp_lq"]),
+                                            str(dirs["inp_gt"]), str(dirs["inp_mask"])))):
+        n_iter = 3 if part == "a" else 2
+        name = "bicx4_swinunet_lpips" if part == "a" else "inpaint_lama256_face"
+        print(f"  18({part}): configs/{name}.yaml, {n_iter} iterations at batch "
+              f"{cfg['train']['batch'][0]} in microbatches of {cfg['train']['microbatch']}, "
+              f"{workers} loader threads, then validation on 2 images", flush=True)
+        cfg["train"].update(log_freq=[1, 1000], val_freq=n_iter, save_freq=1000,
+                            num_workers=workers)
+        calls: dict[str, list] = {}
+        read = lambda: read_launches(all_kernels, sb)
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(cfg, save_dir=str(root / f"run_{part}"), dtype=torch.bfloat16, seed=0)
+        tr.train_step = counting(calls, tr.train_step, "steps", read, reset)
+        tr.validate = counting(calls, tr.validate, "validate", read, reset)
+        tr.train(stop_iter=n_iter)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        log = [json.loads(ln) for ln in
+               (root / f"run_{part}" / "train_log.jsonl").read_text().splitlines()]
+        steps = [m for m in log if "loss" in m]
+        if [m["iter"] for m in steps] != list(range(1, n_iter + 1)):
+            raise AssertionError(f"logged iterations {[m['iter'] for m in steps]}")
+        for m in steps:
+            print(f"  iteration {m['iter']}: loss {m['loss']:.5f} (mse {m['mse']:.5f}, lpips "
+                  f"{m['lpips']:.5f}), grad_norm {m['grad_norm']:.4f}, loader wait "
+                  f"{m['loader_ms']:.1f} ms, to the card {m['degrade_ms']:.1f} ms, step "
+                  f"{m['step_ms']:.1f} ms", flush=True)
+            if not (math.isfinite(m["loss"]) and math.isfinite(m["lpips"]) and m["lpips"] > 0
+                    and math.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
+                raise AssertionError(f"iteration {m['iter']}: loss, lpips or grad_norm not "
+                                     f"finite and > 0")
+        zero = [n for n, p in tr.step_fn.named
+                if p.grad is None or not p.grad.abs().max().item() > 0]
+        print(f"  UNet parameters with a nonzero gradient: {len(tr.step_fn.named) - len(zero)} "
+              f"of {len(tr.step_fn.named)}", flush=True)
+        if zero:
+            raise AssertionError(f"{len(zero)} UNet parameters without a gradient, e.g. "
+                                 f"{zero[:3]}")
+        # a step: C twice a microbatch (the encodes, under no_grad), nothing
+        # else: the decode under autograd runs pinned plain (no C, no D)
+        per_step = {k: 0 for k in calls["steps"][0]}
+        per_step["C"] = 2 * (tr.batch // tr.tcfg.microbatch)
+        print(f"  launches a step: {calls['steps']}", flush=True)
+        if any(got != per_step for got in calls["steps"]):
+            raise AssertionError(f"step launches {calls['steps']}, want {per_step} each")
+        want = validation_launches(cfg, tr.pipe.sched.num_timesteps)
+        (got,) = calls["validate"]
+        print(f"  launches in validation: {got} (derived: {want})", flush=True)
+        if got != want:
+            raise AssertionError(f"validation launches {got}, want {want}")
+        launches[f"18{part} step"], launches[f"18{part} validate"] = calls["steps"][0], got
+        val = [m for m in log if "val_psnr_y" in m]
+        if not (val and math.isfinite(val[0]["val_lpips"]) and val[0]["val_lpips"] > 0):
+            raise AssertionError(f"no finite val_lpips in the log: {val}")
+        later = tr.timings[1:]  # the first iteration builds the loader's threads
+        times = {k: statistics.median(t[k] for t in later)
+                 for k in ("loader_ms", "degrade_ms", "step_ms")}
+        it_ms = sum(times.values())
+        print(f"  18({part}): ms per iteration (median of iterations 2-{n_iter}): {it_ms:.1f} = "
+              f"loader wait {times['loader_ms']:.1f} + to the card {times['degrade_ms']:.1f} + "
+              f"step {times['step_ms']:.1f}; {tr.batch / (it_ms / 1e3):.2f} images/s "
+              f"({tr.batch / (times['step_ms'] / 1e3):.2f} in the step alone); loader wait per "
+              f"batch {[round(t['loader_ms'], 1) for t in tr.timings]} ms; peak "
+              f"max_memory_allocated {peak_gib:.2f} GiB; val_lpips {val[0]['val_lpips']:.4f}, "
+              f"val PSNR(Y) {val[0]['val_psnr_y']:.2f} dB (random weights); on {card}",
+              flush=True)
+        result[part] = {"ms_per_iteration": it_ms, **times, "peak_gib": peak_gib,
+                        "images_per_s": tr.batch / (it_ms / 1e3),
+                        "loader_ms_by_batch": [t["loader_ms"] for t in tr.timings],
+                        "val_lpips": val[0]["val_lpips"], "lpips": steps[-1]["lpips"]}
+        tr.loader.close()
+        del tr
+        torch.cuda.empty_cache()
     tmp.cleanup()
     return result
 
@@ -1264,6 +1445,17 @@ def expected_launches(cfg: dict, lat_h: int, lat_w: int, tail_pinned: bool = Fal
     want.update({"A f32": 0, "B f32": 0, "C f32": 0})  # bf16: no launch of the FMA routes
     want.update({"K9": 0, "K9 f32": 0, "K10": 0, "K10 f32": 0, "P1": 0, "P1 f32": 0, "P2": 0,
                  "P2 f32": 0})  # off the sampler path
+    return want
+
+
+def validation_launches(cfg: dict, steps: int) -> dict:
+    """Kernel launches of `Trainer.validate` on images of one shape at a 64x64
+    latent: the progressive strip of the first image (T UNet calls, T + 1
+    decodes and one encode), then one `sample` call on them all."""
+    want = expected_launches(cfg, 64, 64)
+    for k in ("A", "B", "E", "fused shift"):
+        want[k] *= 2
+    want.update({"C": steps + 2 + 2, "D": steps + 1 + 1, "D finalize": steps + 1 + 1})
     return want
 
 
@@ -1748,11 +1940,12 @@ def main() -> int:
         """Task `name` at full width in bf16, kernel F pinned or not in the
         UNet head and the VQGAN decoder tail through the config keys
         `model.use_pallas` (true, or unset: A, B and E on, F off) and
-        `autoencoder.use_pallas`, as a `--config` YAML sets them; phase 3's
-        kind of random weights, or `sds`."""
+        `autoencoder.use_pallas` (true, or unset: C and D on, F off), as a
+        `--config` YAML sets them; phase 3's kind of random weights, or
+        `sds`."""
         cfg = task_config(name)
         cfg["model"]["use_pallas"] = True if pin else None
-        cfg["autoencoder"]["use_pallas"] = pin
+        cfg["autoencoder"]["use_pallas"] = True if pin else None
         p = ResShiftPipeline(cfg, dtype=torch.bfloat16)
         if sds is None:
             p.init_params(seed=0)
@@ -2109,6 +2302,11 @@ def main() -> int:
           "VQGAN), seeded random weights, bf16 compute on f32 masters, batch 64 in "
           "microbatches of 8, GT 256", flush=True)
     train_phase(dev, card, all_kernels, read_launches, reset, launches)
+
+    # ---------------------------------------------------------------- 18
+    print("phase 18: the LPIPS trainer at full width (bicsr, then inpaint_face), seeded "
+          "random weights (LPIPS too: none ship), bf16 compute on f32 masters", flush=True)
+    lpips_phase(dev, card, all_kernels, read_launches, reset, launches)
 
     rows = kernel_rows(launches, errs, timed)
     backward = {"A": "autograd Function: the plain version's gradient, recomputed",

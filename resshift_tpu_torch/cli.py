@@ -4,7 +4,7 @@
          --task realsr (--version v1|v2|v3, or --scale 2 for realsr_x2),
          bicsr, inpaint_imagenet, inpaint_face (with --mask-path) or faceir
   eval   `infer` with the chop and batch of a README reproduce protocol,
-         then the PSNR/SSIM(Y) report
+         then the PSNR/SSIM(Y) report (and LPIPS with --lpips-path)
   train  train a task from a config whose data.train names the images
          (--save-dir, --resume ckpts/step_XXXXXXXX); SIGTERM checkpoints
 
@@ -151,14 +151,19 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
     return files, seconds
 
 
-def report_metrics(files, sr_dir: Path, gt_dir: Path, extra: dict | None = None):
+def report_metrics(files, sr_dir: Path, gt_dir: Path, extra: dict | None = None,
+                   lpips_path: str | None = None, device: str = "cpu"):
     """PSNR(Y) / SSIM(Y) of the saved outputs against the same-named files
-    under `gt_dir`; also writes `sr_dir/metrics.json` (with `extra` merged
-    in).  Returns (psnr, ssim), or None when no output has a GT."""
+    under `gt_dir`, and LPIPS (f32, on `device`) where `lpips_path` names
+    its weights (a `.pth` of the lpips package's, or the port's own file);
+    also writes `sr_dir/metrics.json` (with `extra` merged in).  Returns
+    (psnr, ssim, lpips or None), or None when no output has a GT."""
+    from .models.lpips import load_lpips
     from .ops.metrics import batch_psnr, batch_ssim
 
+    lpips = None if not lpips_path else load_lpips(lpips_path, device=device)
     gts = {f.stem: f for f in list_images(gt_dir)}
-    psnr = ssim = 0.0
+    psnr = ssim = lpips_sum = 0.0
     n = 0
     for f in files:
         out = sr_dir / f"{f.stem}.png"
@@ -167,13 +172,23 @@ def report_metrics(files, sr_dir: Path, gt_dir: Path, extra: dict | None = None)
         sr, gt = imread(out)[None], imread(gts[f.stem])[None]
         psnr += batch_psnr(sr, gt, ycbcr=True)
         ssim += batch_ssim(sr, gt, ycbcr=True)
+        if lpips is not None:
+            with torch.no_grad():
+                as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a * 2 - 1,
+                                                                       np.float32)).to(device)
+                lpips_sum += float(lpips(as_t(sr), as_t(gt))[0])
         n += 1
     if not n:
         return None
-    print(f"PSNR(Y): {psnr / n:.2f} dB  SSIM(Y): {ssim / n:.4f}  ({n} images)", flush=True)
-    record = {"n": n, "psnr_y": float(psnr / n), "ssim_y": float(ssim / n), **(extra or {})}
+    msg = f"PSNR(Y): {psnr / n:.2f} dB  SSIM(Y): {ssim / n:.4f}"
+    record = {"n": n, "psnr_y": float(psnr / n), "ssim_y": float(ssim / n)}
+    if lpips is not None:
+        msg += f"  LPIPS: {lpips_sum / n:.4f}"
+        record["lpips"] = lpips_sum / n
+    print(msg + f"  ({n} images)", flush=True)
+    record.update(extra or {})
     (sr_dir / "metrics.json").write_text(json.dumps(record, indent=2))
-    return psnr / n, ssim / n
+    return psnr / n, ssim / n, (lpips_sum / n if lpips is not None else None)
 
 
 def cmd_infer(args) -> None:
@@ -185,7 +200,8 @@ def cmd_infer(args) -> None:
                                            if args.chop_stride else st)
     files, _ = _infer(_pipeline(args, cfg), args)
     if args.gt_path:
-        report_metrics(files, Path(args.out_path), Path(args.gt_path))
+        report_metrics(files, Path(args.out_path), Path(args.gt_path),
+                       lpips_path=args.lpips_path, device=args.device)
 
 
 def cmd_eval(args) -> None:
@@ -201,7 +217,8 @@ def cmd_eval(args) -> None:
     print(f"Protocol {args.protocol}: {len(files)} images in {seconds:.1f}s", flush=True)
     if args.gt_path:
         report_metrics(files, Path(args.out_path), Path(args.gt_path),
-                       extra={"protocol": args.protocol, "seconds": round(seconds, 1)})
+                       extra={"protocol": args.protocol, "seconds": round(seconds, 1)},
+                       lpips_path=args.lpips_path, device=args.device)
 
 
 def cmd_train(args) -> None:
@@ -239,6 +256,8 @@ def make_parser() -> argparse.ArgumentParser:
         sp.add_argument("--in-path", required=True)
         sp.add_argument("--out-path", required=True)
         sp.add_argument("--gt-path", default=None, help="GT folder for the PSNR/SSIM report")
+        sp.add_argument("--lpips-path", default=None,
+                        help="LPIPS weights (.pth) for the metric report: adds LPIPS")
         sp.add_argument("--chop-bs", type=int, default=1, help="tiles per sampler call")
 
     pi = sub.add_parser("infer", help="restore a folder or a single image")

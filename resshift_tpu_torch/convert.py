@@ -16,7 +16,7 @@ from typing import Any, Iterable, Mapping
 
 import numpy as np
 
-__all__ = ["from_flax", "load_torch_state_dict", "train_state_from_flax"]
+__all__ = ["from_flax", "load_torch_state_dict", "lpips_from_flax", "train_state_from_flax"]
 
 
 def _flatten(tree: Mapping, prefix: tuple = ()) -> dict[tuple[str, ...], Any]:
@@ -254,3 +254,23 @@ def train_state_from_flax(state, **unet_cfg) -> dict:
     tree = lambda t: {k: torch.tensor(v) for k, v in from_flax(t, "unet", **unet_cfg).items()}
     return {"step": step, "params": tree(state.params), "ema": tree(state.ema_params),
             "exp_avg": tree(adam.mu), "exp_avg_sq": tree(adam.nu)}
+
+
+def lpips_from_flax(params: Mapping) -> dict[str, np.ndarray]:
+    """The JAX package's LPIPS parameters ({'vgg': {'conv{idx}': {kernel,
+    bias}}, 'lin{i}': (C,)}, numpy) -> the state_dict of
+    `models.lpips.LPIPS` (numpy float32), its scaling buffers included."""
+    from .models.lpips import _SCALE, _SHIFT, _conv_indices, _slice_of
+
+    sd = {"scaling_layer.shift": _np(_SHIFT).reshape(1, 3, 1, 1),
+          "scaling_layer.scale": _np(_SCALE).reshape(1, 3, 1, 1)}
+    for idx in _conv_indices():
+        conv = params["vgg"][f"conv{idx}"]
+        sd[f"net.slice{_slice_of(idx)}.{idx}.weight"] = _np(conv["kernel"]).transpose(3, 2, 0, 1)
+        sd[f"net.slice{_slice_of(idx)}.{idx}.bias"] = _np(conv["bias"])
+    i = 0
+    while f"lin{i}" in params:
+        w = _np(params[f"lin{i}"]).reshape(1, -1, 1, 1)
+        sd[f"lin{i}.model.1.weight"] = sd[f"lins.{i}.model.1.weight"] = w
+        i += 1
+    return sd

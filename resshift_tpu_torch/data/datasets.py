@@ -6,6 +6,10 @@ the JAX package's `data/datasets.py` that realsr training runs).
   * `RealESRGANData`: HQ crops and each sample's three blur kernels, drawn
     from the dataset's `np.random.Generator` in the JAX package's order,
     so that the same seed and files give the same items bit for bit;
+  * `BicubicData` (bicsr): GT crops and their MATLAB-bicubic LQ, flipped
+    one of 8 ways; `InpaintingData`: LaMa distortions of the image and a
+    LaMa mask (`masks.py`, `distortions.py`); `InpaintingValData`: lq /
+    gt / mask triplets from folders;
   * `create_dataset` (the `type` factory) and `DataLoader` (epoch
     shuffling from (seed, epoch), `skip_batches` to resume, `num_workers`
     threads each with a reseeded deep copy of the dataset).
@@ -27,11 +31,13 @@ from pathlib import Path
 
 import numpy as np
 
-from ..ops.resize import resize_np
+from ..ops.resize import imresize_matlab, resize_np
 from ..utils.image_io import imread, list_images
 from . import degradations as deg
+from .masks import MixedMaskGenerator
 
-__all__ = ["create_dataset", "DataLoader", "BaseData", "RealESRGANData"]
+__all__ = ["create_dataset", "DataLoader", "BaseData", "RealESRGANData", "BicubicData",
+           "InpaintingData", "InpaintingValData"]
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md section 1: the other dataset types, packed "
                "files and memcached)")
@@ -203,9 +209,156 @@ class RealESRGANData:
         return {"gt": img.astype(np.float32), "kernel1": k1, "kernel2": k2, "sinc_kernel": sinc}
 
 
-_FACTORY = {"base": BaseData, "realesrgan": RealESRGANData}
-_JAX_ONLY = ("bicubic", "inpainting", "inpainting_val", "gfpgan", "bsrgan", "bsrganimagenet",
-             "siddval", "deg_from_source")
+class BicubicData:
+    """GT crops and their MATLAB-bicubic LQ (x `scale`), in the 8-way
+    dihedral augmentation; draws: the crop, then the flip."""
+
+    def __init__(self, source_path=None, source_txt_path=None, degrade_kwargs=None,
+                 mean=0.5, std=0.5, length=None, need_path=False, im_exts="png",
+                 recursive=False, seed=0, **_):
+        self.rng = np.random.default_rng(seed)
+        self.paths = _collect_paths(dir_path=source_path, txt_file_path=source_txt_path,
+                                    recursive=recursive, length=length, rng=self.rng)
+        dk = degrade_kwargs or {}
+        self.scale = dk.get("scale", 0.25)
+        self.gt_size = dk.get("pch_size", dk.get("gt_size", 256))
+        self.resize_back = dk.get("resize_back", False)
+        self.pass_crop = dk.get("pass_crop", False)
+        self.pass_aug = dk.get("pass_aug", False)
+        self.pass_smallmax = dk.get("pass_smallmaxresize", False)
+        self.mean, self.std = mean, std
+        self.need_path = need_path
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        rng = self.rng
+        gt = imread(self.paths[i])
+        if not self.pass_smallmax and min(gt.shape[:2]) != self.gt_size:
+            h, w = gt.shape[:2]
+            s = self.gt_size / min(h, w)
+            gt = resize_np(gt, (max(self.gt_size, round(h * s)),
+                                max(self.gt_size, round(w * s))), "bicubic_torch")
+        if not self.pass_crop:
+            h, w = gt.shape[:2]
+            top = int(rng.integers(0, max(h - self.gt_size, 0) + 1))
+            left = int(rng.integers(0, max(w - self.gt_size, 0) + 1))
+            gt = gt[top:top + self.gt_size, left:left + self.gt_size]
+        lq = imresize_matlab(gt, self.scale)
+        if self.resize_back:
+            lq = imresize_matlab(lq, 1.0 / self.scale)
+        if not self.pass_aug:
+            flag = int(rng.integers(8))
+            gt, lq = (_flip8(gt, flag), _flip8(lq, flag))
+        out = {"gt": _normalize(gt, self.mean, self.std),
+               "lq": _normalize(np.clip(lq, 0, 1), self.mean, self.std)}
+        if self.need_path:
+            out["path"] = str(self.paths[i])
+        return out
+
+
+def _flip8(im: np.ndarray, flag: int) -> np.ndarray:
+    """8-way dihedral augmentation: rot90 by flag % 4, then a vertical flip
+    for flag >= 4."""
+    if flag % 4 == 1:
+        im = np.rot90(im)
+    elif flag % 4 == 2:
+        im = np.rot90(im, 2)
+    elif flag % 4 == 3:
+        im = np.rot90(im, 3)
+    if flag >= 4:
+        im = np.flipud(im)
+    return np.ascontiguousarray(im)
+
+
+class InpaintingData:
+    """GT (LaMa distortions, or a random crop and flip) and a generated LaMa
+    mask: lq = gt * (1 - mask) - mask * (mean / std), the mask normalised
+    to [-1, 1].  The image, its distortion and the mask draw from one
+    generator."""
+
+    def __init__(self, dir_path=None, txt_file_path=None, mask_kwargs=None,
+                 pch_size=256, mean=0.5, std=0.5, length=None, need_path=False,
+                 im_exts="png", recursive=False, seed=0,
+                 transform_type="lama_distortions", **_):
+        self.rng = np.random.default_rng(seed)
+        self.paths = _collect_paths(dir_path=dir_path, txt_file_path=txt_file_path,
+                                    recursive=recursive, length=length, rng=self.rng)
+        self.mask_gen = MixedMaskGenerator(rng=self.rng, **(mask_kwargs or {}))
+        self.pch_size = pch_size
+        self.mean, self.std = mean, std
+        self.need_path = need_path
+        self.iter_i = 0
+        if transform_type == "lama_distortions":
+            from .distortions import LamaDistortions
+
+            self.distort = LamaDistortions(pch_size=pch_size)
+        else:  # a random crop and horizontal flip
+            self.distort = None
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        rng = self.rng
+        im = imread(self.paths[i])
+        if self.distort is not None:
+            im = self.distort(im, rng)
+        else:
+            h, w = im.shape[:2]
+            if min(h, w) < self.pch_size:
+                s = self.pch_size / min(h, w)
+                im = resize_np(im, (max(self.pch_size, round(h * s)),
+                                    max(self.pch_size, round(w * s))), "bicubic_torch")
+                h, w = im.shape[:2]
+            top = int(rng.integers(0, h - self.pch_size + 1))
+            left = int(rng.integers(0, w - self.pch_size + 1))
+            im = im[top:top + self.pch_size, left:left + self.pch_size]
+            if rng.uniform() < 0.5:
+                im = np.ascontiguousarray(im[:, ::-1])
+        gt = _normalize(im, self.mean, self.std)
+        mask = self.mask_gen((self.pch_size, self.pch_size), iter_i=self.iter_i)
+        self.iter_i += 1
+        lq = gt * (1 - mask) - mask * (self.mean / self.std)
+        out = {"gt": gt.astype(np.float32), "lq": lq.astype(np.float32),
+               "mask": _normalize(mask, self.mean, self.std).astype(np.float32)}
+        if self.need_path:
+            out["path"] = str(self.paths[i])
+        return out
+
+
+class InpaintingValData:
+    """lq / gt / mask triplets from folders, matched by file name; the mask
+    read as gray."""
+
+    def __init__(self, lq_path, gt_path=None, mask_path=None, mean=0.5, std=0.5,
+                 length=None, need_path=False, im_exts="png", recursive=False,
+                 seed=0, **_):
+        self.paths = _collect_paths(dir_path=lq_path, recursive=recursive,
+                                    length=length, rng=np.random.default_rng(seed))
+        self.gt_path, self.mask_path = gt_path, mask_path
+        self.mean, self.std = mean, std
+        self.need_path = need_path
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        p = Path(self.paths[i])
+        out = {"lq": _normalize(imread(p), self.mean, self.std)}
+        if self.gt_path is not None:
+            out["gt"] = _normalize(imread(Path(self.gt_path) / p.name), self.mean, self.std)
+        mask = imread(Path(self.mask_path) / p.name, chn="gray")[..., None]
+        out["mask"] = _normalize(mask, self.mean, self.std)
+        if self.need_path:
+            out["path"] = str(p)
+        return out
+
+
+_FACTORY = {"base": BaseData, "realesrgan": RealESRGANData, "bicubic": BicubicData,
+            "inpainting": InpaintingData, "inpainting_val": InpaintingValData}
+_JAX_ONLY = ("gfpgan", "bsrgan", "bsrganimagenet", "siddval", "deg_from_source")
 
 
 def create_dataset(config: dict):

@@ -15,6 +15,8 @@ dtype at use, as Flax modules with `dtype=` do.
 
 from __future__ import annotations
 
+import copy
+import itertools
 import math
 
 import torch
@@ -24,7 +26,21 @@ import torch.nn.functional as F
 from ..ops.tail import group_norm_fold
 
 __all__ = ["Conv2d", "Linear", "GroupNorm32", "group_norm_fold", "timestep_embedding", "ResBlock",
-           "Upsample", "Downsample", "upsample_nearest2x"]
+           "Upsample", "Downsample", "upsample_nearest2x", "pinned_clone"]
+
+
+def pinned_clone(module: nn.Module, use_pallas: bool | None) -> nn.Module:
+    """`module` under the pin `use_pallas`: new module objects holding the
+    same parameter and buffer tensors (an update of either is an update of
+    both), every `use_pallas` attribute set, as Flax's
+    `clone(use_pallas=...)` keeps one param tree.  Its train/eval mode is
+    its own."""
+    memo = {id(t): t for t in itertools.chain(module.parameters(), module.buffers())}
+    other = copy.deepcopy(module, memo)
+    for mod in other.modules():
+        if hasattr(mod, "use_pallas"):
+            mod.use_pallas = use_pallas
+    return other
 
 
 class Conv2d(nn.Conv2d):

@@ -25,8 +25,6 @@ Module names follow the reference's state_dict (input_blocks.N.M, ...).
 
 from __future__ import annotations
 
-import copy
-import itertools
 import math
 from typing import Sequence
 
@@ -35,7 +33,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import tail
-from .layers import Conv2d, Downsample, GroupNorm32, Linear, ResBlock, Upsample, timestep_embedding
+from .layers import (Conv2d, Downsample, GroupNorm32, Linear, ResBlock, Upsample, pinned_clone,
+                     timestep_embedding)
 from .swin import BasicLayer
 
 __all__ = ["UNetModelSwin"]
@@ -131,12 +130,7 @@ class UNetModelSwin(nn.Module):
         the same parameter and buffer tensors (an update of either is an
         update of both), as Flax's `clone(use_pallas=...)` keeps one param
         tree.  Its train/eval mode is its own."""
-        memo = {id(t): t for t in itertools.chain(self.parameters(), self.buffers())}
-        other = copy.deepcopy(self, memo)
-        for mod in other.modules():
-            if hasattr(mod, "use_pallas"):
-                mod.use_pallas = use_pallas
-        return other
+        return pinned_clone(self, use_pallas)
 
     @staticmethod
     def _run(layers: nn.ModuleList, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:

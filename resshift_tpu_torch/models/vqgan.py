@@ -9,8 +9,12 @@
   * VectorQuantizer: nearest code (kernel D on a CUDA tensor), then a gather.
     `encode` returns the pre-quantization latent; `decode` quantizes first.
   * The decoder tail (GN, SiLU, conv_out) goes through ops/tail.py.
-  * `use_pallas=True` launches kernel F in the decoder tail, as the JAX
-    package's pin launches K8 there; off by default.
+  * `use_pallas` is the JAX package's tri-state switch, threaded to every
+    AttnBlock, the VectorQuantizer and the decoder tail: None (the default)
+    launches C and D on a CUDA tensor and leaves F off; True launches F in
+    the decoder tail as well; False runs the plain versions of all three
+    on any device (the train step's decode under autograd, through
+    `clone(use_pallas=False)`, since C has no backward).
 Module names follow the reference's state_dict (encoder.down.0.block.0...).
 """
 
@@ -23,7 +27,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import flash_attention, tail, vq
-from .layers import Conv2d, GroupNorm32, upsample_nearest2x
+from .layers import Conv2d, GroupNorm32, pinned_clone, upsample_nearest2x
 
 __all__ = ["ResnetBlock", "AttnBlock", "Downsample", "Upsample", "Encoder", "Decoder",
            "VectorQuantizer", "VQModel"]
@@ -31,6 +35,10 @@ __all__ = ["ResnetBlock", "AttnBlock", "Downsample", "Upsample", "Encoder", "Dec
 
 def _norm(c: int) -> GroupNorm32:
     return GroupNorm32(c, eps=1e-6)
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    return x.device.type == "cpu"
 
 
 class ResnetBlock(nn.Module):
@@ -57,9 +65,10 @@ class AttnBlock(nn.Module):
     """Single-head self-attention over all pixels."""
 
     def __init__(self, in_channels: int, dtype: torch.dtype = torch.float32,
-                 chunk_threshold: int = 16384):
+                 chunk_threshold: int = 16384, use_pallas: bool | None = None):
         super().__init__()
         self.chunk_threshold = chunk_threshold
+        self.use_pallas = use_pallas
         self.norm = _norm(in_channels)
         self.q = Conv2d(in_channels, in_channels, 1, dtype=dtype)
         self.k = Conv2d(in_channels, in_channels, 1, dtype=dtype)
@@ -70,8 +79,10 @@ class AttnBlock(nn.Module):
         b, c, h, w = x.shape
         hn = self.norm(x)
         q, k, v = (m(hn).reshape(b, c, h * w).transpose(1, 2) for m in (self.q, self.k, self.v))
-        if q.device.type == "cpu" and h * w > self.chunk_threshold:
-            out = flash_attention.chunked_attention_plain(q, k, v, chunk=4096)
+        big = h * w > self.chunk_threshold
+        if self.use_pallas is False or (big and _on_cpu(q)):
+            out = (flash_attention.chunked_attention_plain(q, k, v, chunk=4096) if big
+                   else flash_attention.attention_plain(q, k, v))
         else:
             out = flash_attention.flash_attention_1h(q, k, v)
         out = out.transpose(1, 2).reshape(b, c, h, w)
@@ -107,7 +118,8 @@ def _nrb(num_res_blocks, n: int) -> list[int]:
 class Encoder(nn.Module):
     def __init__(self, ch: int = 128, ch_mult: Sequence[int] = (1, 2, 4),
                  num_res_blocks: Sequence[int] | int = 2, in_channels: int = 3,
-                 z_channels: int = 3, dtype: torch.dtype = torch.float32):
+                 z_channels: int = 3, dtype: torch.dtype = torch.float32,
+                 use_pallas: bool | None = None):
         super().__init__()
         nrb = _nrb(num_res_blocks, len(ch_mult))
         self.conv_in = Conv2d(in_channels, ch, 3, padding=1, dtype=dtype)
@@ -125,7 +137,7 @@ class Encoder(nn.Module):
             self.down.append(level)
         self.mid = nn.Module()
         self.mid.block_1 = ResnetBlock(block_in, dtype=dtype)
-        self.mid.attn_1 = AttnBlock(block_in, dtype)
+        self.mid.attn_1 = AttnBlock(block_in, dtype, use_pallas=use_pallas)
         self.mid.block_2 = ResnetBlock(block_in, dtype=dtype)
         self.norm_out = _norm(block_in)
         self.conv_out = Conv2d(block_in, z_channels, 3, padding=1, dtype=dtype)
@@ -144,15 +156,15 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, ch: int = 128, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4),
                  num_res_blocks: Sequence[int] | int = 2, z_channels: int = 3,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool | None = None):
         super().__init__()
         nrb = _nrb(num_res_blocks, len(ch_mult))
         block_in = ch * ch_mult[-1]
-        self.use_pallas = bool(use_pallas)
+        self.use_pallas = use_pallas
         self.conv_in = Conv2d(z_channels, block_in, 3, padding=1, dtype=dtype)
         self.mid = nn.Module()
         self.mid.block_1 = ResnetBlock(block_in, dtype=dtype)
-        self.mid.attn_1 = AttnBlock(block_in, dtype)
+        self.mid.attn_1 = AttnBlock(block_in, dtype, use_pallas=use_pallas)
         self.mid.block_2 = ResnetBlock(block_in, dtype=dtype)
         levels = []
         for i in reversed(range(len(ch_mult))):
@@ -179,16 +191,17 @@ class Decoder(nn.Module):
                 h = level.upsample(h)
         return tail.gn_silu_conv3x3(h, self.norm_out.weight, self.norm_out.bias,
                                     self.conv_out.weight, self.conv_out.bias, eps=1e-6,
-                                    use_pallas=self.use_pallas)
+                                    use_pallas=self.use_pallas is True)
 
 
 class VectorQuantizer(nn.Module):
     """L2-nearest codebook entry with the straight-through form
     z + stop_gradient(q - z)."""
 
-    def __init__(self, n_e: int = 8192, e_dim: int = 3):
+    def __init__(self, n_e: int = 8192, e_dim: int = 3, use_pallas: bool | None = None):
         super().__init__()
         self.e_dim = e_dim
+        self.use_pallas = use_pallas
         self.embedding = nn.Embedding(n_e, e_dim)
         nn.init.uniform_(self.embedding.weight, -1.0 / n_e, 1.0 / n_e)
 
@@ -196,7 +209,9 @@ class VectorQuantizer(nn.Module):
         """z: (..., e_dim) channels-last."""
         zf = z.float()
         emb = self.embedding.weight.float()
-        idx = vq.nearest_codebook_indices(zf.reshape(-1, self.e_dim), emb)
+        search = (vq.nearest_codebook_indices_plain if self.use_pallas is False
+                  else vq.nearest_codebook_indices)
+        idx = search(zf.reshape(-1, self.e_dim), emb)
         z_q = emb[idx].reshape(zf.shape)
         # straight-through: the value of z_q, the gradient of z (identity);
         # the codebook gets none, as JAX's stop_gradient gives
@@ -208,18 +223,26 @@ class VQModel(nn.Module):
     Both take and return NHWC."""
 
     def __init__(self, ddconfig: dict, n_embed: int = 8192, embed_dim: int = 3,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool | None = None):
         super().__init__()
         dd = ddconfig
+        self.use_pallas = use_pallas
         if dd.get("attn_resolutions") or dd.get("double_z"):
             raise NotImplementedError("this port covers attn_resolutions=[] and double_z=False")
         common = dict(ch=dd["ch"], ch_mult=dd["ch_mult"], num_res_blocks=dd["num_res_blocks"],
                       z_channels=dd["z_channels"], dtype=dtype)
-        self.encoder = Encoder(in_channels=dd.get("in_channels", 3), **common)
+        self.encoder = Encoder(in_channels=dd.get("in_channels", 3), use_pallas=use_pallas,
+                               **common)
         self.decoder = Decoder(out_ch=dd.get("out_ch", 3), use_pallas=use_pallas, **common)
-        self.quantize = VectorQuantizer(n_embed, embed_dim)
+        self.quantize = VectorQuantizer(n_embed, embed_dim, use_pallas=use_pallas)
         self.quant_conv = Conv2d(dd["z_channels"], embed_dim, 1, dtype=dtype)
         self.post_quant_conv = Conv2d(embed_dim, dd["z_channels"], 1, dtype=dtype)
+
+    def clone(self, use_pallas: bool | None) -> "VQModel":
+        """This module under the pin `use_pallas`: new module objects holding
+        the same parameter and buffer tensors, as Flax's
+        `clone(use_pallas=...)` keeps one param tree."""
+        return pinned_clone(self, use_pallas)
 
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         h = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))

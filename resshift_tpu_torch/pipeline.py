@@ -15,7 +15,8 @@ overlapping tile grid, their masks (inpainting) through the same grid.
   * A config's `model.use_pallas: true` launches kernel F in the UNet head
     (the JAX package's pin; `false` pins the UNet to the plain composition,
     with no kernel) and `autoencoder.use_pallas: true` in the VQGAN decoder
-    tail (a key of this package only).
+    tail (a key of this package only; `false` pins the VQGAN to its plain
+    attention and codebook search, as `VQModel.clone(use_pallas=False)`).
   * `diffusion.variant: ddpm` swaps the residual-shifting chain for classic
     DDPM (`sampler: ancestral`) or DDIM (`sampler: ddim`, with `eta`) from
     pure noise at the latent shape, the LQ image conditioning the UNet
@@ -147,7 +148,7 @@ class ResShiftPipeline:
         ae = config.get("autoencoder")
         self.vq = None if ae is None else VQModel(
             ae["ddconfig"], n_embed=ae["n_embed"], embed_dim=ae["embed_dim"],
-            dtype=dtype, use_pallas=ae.get("use_pallas", False)).to(self.device).eval()
+            dtype=dtype, use_pallas=ae.get("use_pallas")).to(self.device).eval()
         inf = config.get("inference", {})
         self.padding_offset = int(inf.get("padding_offset", m.get("lq_size", 64)))
         # the LQ side whose latent the UNet takes: latent = LQ * sf / f

@@ -21,9 +21,16 @@ JAX package.
 
 Pretrained weights: `model.ckpt_path` warm-starts the denoiser and
 `autoencoder.ckpt_path` loads the frozen VQGAN, both `.pth` files (an
-orbax directory raises: `checkpoint.load_params`).  The LPIPS trainer
-(`trainer: difir_lpips`) and FSDP raise NotImplementedError (ROADMAP.md
-section 1).
+orbax directory raises: `checkpoint.load_params`).  FSDP raises
+NotImplementedError (ROADMAP.md section 1).
+
+The LPIPS trainer (`trainer: difir_lpips`, or `train.use_lpips`) adds the
+LPIPS term to the step's loss (`trainer.TrainStep`) and `val_lpips` to
+validation.  Its frozen network comes from `train.lpips_path`: a `.pth`
+of the `lpips` package's weights, another path the port's own parameter
+file, no path random weights (with a WARNING: no LPIPS weights ship with
+the repository).  It is frozen, so checkpoints and resume carry nothing
+more.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from .checkpoint import AsyncSaver, restore_train_state
 from .data.datasets import DataLoader, create_dataset
 from .data.realesrgan import DegradationConfig, RealESRGANDegrader
 from .diffusion import resshift as rs
+from .models.lpips import load_lpips
 from .ops.metrics import batch_psnr, batch_ssim
 from .pipeline import ResShiftPipeline, load_pth
 from .trainer import TrainConfig, TrainStep
@@ -102,10 +110,6 @@ class Trainer:
         for sub in ("ckpts", "images/train", "images/val"):
             (self.save_dir / sub).mkdir(parents=True, exist_ok=True)
         traw = dict(config.get("train") or {})
-        if (config.get("trainer") in ("difir_lpips", "TrainerDifIRLPIPS")
-                or traw.get("use_lpips")):
-            raise NotImplementedError("the LPIPS trainer is not ported yet (ROADMAP.md "
-                                      "section 1: models/lpips.py)")
         self.tcfg = TrainConfig.from_config(config)
         b = traw.get("batch", 16)
         self.batch = int(b[0] if isinstance(b, (list, tuple)) else b)
@@ -123,7 +127,11 @@ class Trainer:
             if path and mod is not None:
                 load_pth(mod, path)
                 print(f"[init] {what} from {path}", flush=True)
-        self.step_fn = TrainStep(self.pipe, self.tcfg)
+        self.lpips = None
+        if (config.get("trainer") in ("difir_lpips", "TrainerDifIRLPIPS")
+                or traw.get("use_lpips")):
+            self.lpips = self._build_lpips(traw.get("lpips_path"))
+        self.step_fn = TrainStep(self.pipe, self.tcfg, lpips=self.lpips)
 
         dcfg = config.get("data") or {}
         train_cfg = dcfg.get("train")
@@ -145,6 +153,14 @@ class Trainer:
         self._val_pipe: ResShiftPipeline | None = None
         if resume:
             self.resume(resume)
+
+    def _build_lpips(self, path: str | None):
+        """The frozen LPIPS(vgg) of the loss and of validation, in the
+        compute dtype on the device."""
+        if not path:
+            print("WARNING: LPIPS enabled without train.lpips_path — using RANDOM weights "
+                  "(tests/smoke only)", flush=True)
+        return load_lpips(path or None, dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------ the loop
 
@@ -259,7 +275,8 @@ class Trainer:
 
     def validate(self, it: int, max_images: int | None = None):
         """The reverse chain on the val set with the EMA weights; PSNR / SSIM
-        (Y) against the GT where there is one, appended to the JSON log; the
+        (Y) against the GT where there is one (and LPIPS, one batched call a
+        shape group, for the LPIPS trainer), appended to the JSON log; the
         first image's restoration and progressive strip under images/val.
         `train.val_max_images` bounds the set.  Returns (psnr, ssim) or None."""
         if max_images is None:
@@ -284,7 +301,7 @@ class Trainer:
         groups: dict[tuple, list] = {}
         for i, item in enumerate(items):
             groups.setdefault((item["lq"].shape, "mask" in item), []).append((i, item))
-        psnr = ssim = 0.0
+        psnr = ssim = lpips_sum = 0.0
         n = 0
         for gi, group in enumerate(groups.values()):
             lq = as_t(np.stack([item["lq"] for _, item in group]))
@@ -297,17 +314,26 @@ class Trainer:
                     imwrite(sr01[j], val_dir / f"val_{it:06d}.png")
             idx = [j for j, (_, item) in enumerate(group) if "gt" in item]
             if idx:
-                gt01 = from_model(np.stack([np.asarray(group[j][1]["gt"]) for j in idx]))
+                gt = np.stack([np.asarray(group[j][1]["gt"]) for j in idx])
+                gt01 = from_model(gt)
                 psnr += batch_psnr(sr01[idx], gt01, ycbcr=True)  # sums over the batch
                 ssim += batch_ssim(sr01[idx], gt01, ycbcr=True)
+                if self.lpips is not None:
+                    with torch.no_grad():
+                        v = self.lpips(as_t(sr01[idx] * 2 - 1), as_t(gt))
+                    lpips_sum += float(v.float().sum())
                 n += len(idx)
         if not n:
             return None
         metrics = {"iter": it, "val_n": n, "val_psnr_y": float(psnr / n),
                    "val_ssim_y": float(ssim / n)}
+        msg = f"[val @{it}] PSNR(Y)={psnr / n:.2f} SSIM(Y)={ssim / n:.4f}"
+        if self.lpips is not None:
+            metrics["val_lpips"] = lpips_sum / n
+            msg += f" LPIPS={lpips_sum / n:.4f}"
         with open(self.save_dir / "train_log.jsonl", "a") as f:
             f.write(json.dumps(metrics) + "\n")
-        print(f"[val @{it}] PSNR(Y)={psnr / n:.2f} SSIM(Y)={ssim / n:.4f}", flush=True)
+        print(msg, flush=True)
         return psnr / n, ssim / n
 
     # ------------------------------------------------------------ checkpoints

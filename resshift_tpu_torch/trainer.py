@@ -11,11 +11,20 @@ on the pipeline's device) and, per microbatch:
   * runs the UNet pinned `use_pallas=False` (the plain composition, as the
     JAX trainer's `clone(use_pallas=False)`: the kernels' backward would
     recompute it anyway) in train mode, so dropout is live;
-  * backpropagates the mean latent MSE (`diffusion.resshift.training_losses`).
+  * backpropagates the mean latent MSE (`diffusion.resshift.training_losses`),
+    times `loss_coef[0]`;
+  * with an `lpips` module (the LPIPS trainer, `trainer: difir_lpips`), also
+    decodes the x0 prediction through `pipe.vq.clone(use_pallas=False)` (the
+    same parameters on the plain attention and codebook search: kernel C has
+    no backward, and the JAX package pins its UNet off the kernels under
+    autograd for the same reason), clamps it to [-1, 1] and adds
+    `loss_coef[1]` times the batch mean of LPIPS against the GT, NaN set to
+    0 (metric `lpips`).  LPIPS and the VQGAN take no gradient.
 The gradient is the mean over the microbatches; then the learning rate of
 the step is set, `torch.optim.AdamW` steps (its update is optax.adamw's),
-and the EMA follows.  Metrics: loss, mse, the per-timestep buckets
-(t = 0, T // 2, T - 1), lr and the global gradient norm, as 0-d tensors.
+and the EMA follows.  Metrics: loss, mse (and lpips), the per-timestep
+buckets (t = 0, T // 2, T - 1), lr and the global gradient norm, as 0-d
+tensors.
 `remat` ("dots": keep matmul and conv outputs, recompute the elementwise
 chains; "full": keep nothing) wraps the UNet in `torch.utils.checkpoint`.
 """
@@ -102,9 +111,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 class TrainStep:
     """The train state (the UNet's parameters, AdamW, the EMA, the step) and
     its update.  The parameters are `pipe.unet`'s own (float32 masters,
-    cast to the compute dtype at use); the VQGAN stays frozen."""
+    cast to the compute dtype at use); the VQGAN (and `lpips`, a frozen
+    `models.lpips.LPIPS`, where given) stays frozen."""
 
-    def __init__(self, pipe: ResShiftPipeline, cfg: TrainConfig):
+    def __init__(self, pipe: ResShiftPipeline, cfg: TrainConfig,
+                 lpips: torch.nn.Module | None = None):
         if cfg.fsdp:
             raise NotImplementedError("train.fsdp needs several cards (ROADMAP.md section 1, "
                                       "multi-GPU)")
@@ -116,6 +127,13 @@ class TrainStep:
         self.named = list(pipe.unet.named_parameters())
         if pipe.vq is not None:
             pipe.vq.requires_grad_(False)
+        self.lpips = lpips
+        self.decode_vq = None
+        if lpips is not None:
+            if pipe.vq is None:
+                raise ValueError("the LPIPS loss decodes the x0 prediction: it needs a VQGAN")
+            lpips.requires_grad_(False)
+            self.decode_vq = pipe.vq.clone(use_pallas=False)
         params = [p for _, p in self.named]
         self.opt = torch.optim.AdamW(params, lr=self.lr_fn(0), betas=(0.9, 0.999), eps=1e-8,
                                      weight_decay=cfg.weight_decay)
@@ -158,11 +176,17 @@ class TrainStep:
             kw["lq"] = batch["lq"]
         if pipe.cond_mask and "mask" in batch:
             kw["mask"] = batch["mask"]
-        mse, _, _ = rs.training_losses(sched, self._model, z0, z_y, t, noise, model_kwargs=kw,
-                                       weighted_mse=self.cfg.weighted_mse)
+        mse, _, pred_z0 = rs.training_losses(sched, self._model, z0, z_y, t, noise,
+                                             model_kwargs=kw,
+                                             weighted_mse=self.cfg.weighted_mse)
         loss = mse.mean() * self.cfg.loss_coef[0]
         mse = mse.detach()
         metrics = {"mse": mse.mean()}
+        if self.lpips is not None:
+            x0 = pipe._decode(self.decode_vq, pred_z0).clamp(-1.0, 1.0)
+            lp = torch.nan_to_num(self.lpips(x0, batch["gt"]).float().mean())
+            loss = loss + self.cfg.loss_coef[1] * lp
+            metrics["lpips"] = lp.detach()
         for name, tt in (("loss_t0", 0), ("loss_tmid", sched.num_timesteps // 2),
                          ("loss_tlast", sched.num_timesteps - 1)):
             sel = (t == tt).float()

@@ -82,9 +82,10 @@ def _reference(tmp_path, kind, names, seed, masks=None):
     as 8-bit images; pasted back where a mask is given."""
     pipe = ResShiftPipeline(tconfig.load_yaml_config(tmp_path / f"{kind}.yaml"),
                             dtype=torch.float32, device="cpu")
-    # the YAML's pins reach the UNet head and the decoder tail (the UNet's
-    # pin is tri-state: unset is None, F off)
-    assert (pipe.unet.use_pallas is True) == pipe.vq.decoder.use_pallas == (kind == "inpaint")
+    # the YAML's pins reach the UNet head and the decoder tail (both pins
+    # are tri-state: unset is None, F off)
+    assert ((pipe.unet.use_pallas is True) == (pipe.vq.decoder.use_pallas is True)
+            == (kind == "inpaint"))
     pipe.init_params(seed)
     gen = torch.Generator().manual_seed(seed)
     out = {}

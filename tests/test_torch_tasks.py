@@ -291,9 +291,10 @@ def test_use_pallas_pins_follow_jax(monkeypatch):
     `autoencoder.use_pallas` pin kernel F in the UNet head, once per step,
     and in the decoder tail.  `model.use_pallas: false` is the JAX
     package's pin to the plain composition: the Swin blocks call the plain
-    versions and none of A's, B's or E's wrappers; the VQGAN's C and D take
-    their wrappers either way.  On the CPU the wrappers run the plain
-    versions, so the output is the same bit for bit."""
+    versions and none of A's, B's or E's wrappers; `autoencoder.use_pallas:
+    false` pins the VQGAN likewise (the tri-state of the JAX package's
+    VQModel): none of C's or D's wrappers.  On the CPU the wrappers run the
+    plain versions, so the output is the same bit for bit."""
     from resshift_tpu_torch.ops import flash_attention, swin_block, tail
 
     wrappers = [(swin_block, n) for n in ("norm_attn_residual_stats", "shift_attn_residual_stats",
@@ -318,8 +319,8 @@ def test_use_pallas_pins_follow_jax(monkeypatch):
                                 torch.from_numpy(mask))
         steps = TASKS["inpaint"]["diffusion"]["steps"]
         assert calls.count(("gn_silu_conv3x3", pin)) == steps + 1
-        swin = {n for m, n in wrappers if m is swin_block}
-        assert {n for n, _ in calls} == {n for _, n in wrappers} - (set() if pin else swin)
+        pinned = {n for m, n in wrappers if m is not tail}  # A, B, E, C and D
+        assert {n for n, _ in calls} == {n for _, n in wrappers} - (set() if pin else pinned)
     torch.testing.assert_close(outs[True], outs[False], rtol=0, atol=0)
 
 

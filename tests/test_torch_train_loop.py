@@ -205,8 +205,10 @@ def test_pth_warm_starts_and_orbax_refused(data, tmp_path):
 
 
 def test_lpips_trainer_is_not_ported(data, tmp_path):
+    """The LPIPS trainer is ported; its FSDP, as every trainer's, is not."""
     cfg = config(data)
     cfg["trainer"] = "difir_lpips"
+    cfg["train"]["fsdp"] = True
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(cfg, save_dir=str(tmp_path), device="cpu")
 
