@@ -141,6 +141,18 @@ bit;
      launches as `expected_launches` derives them, val_lpips; ms per
      iteration split into the loader's wait and the step, images/s, the
      loader's wait per batch, peak max_memory_allocated;
+ 19. faceir: (c) the port's JPEG round trip (ops/jpeg.py) of a seeded
+     image at qualities 30, 60 and 95 against the SHA-256 digests of
+     OpenCV's that tests/test_torch_jpeg.py pins (integer arithmetic: the
+     same bits on any machine); (a) configs/faceir_gfpgan512_lpips.yaml
+     (`faceir_lpips_config`) on 96 seeded 512x512 PNGs through the
+     `gfpgan` loader (the GFPGAN-style degradation in numpy on 8 threads),
+     batch 96 in microbatches of 12, 3 iterations, validation on 2 faces
+     without GT, checked and timed as in phase 18, then `python -m
+     resshift_tpu_torch.scripts celeba-faceir` on 4 faces in a subprocess;
+     (b) one batch of 96 from the `bsrgan` (light chain) and
+     `bsrganimagenet` (full chain) loaders at GT 256 on 8 threads: shapes,
+     range, time;
 then print the `kernels` JSON line (each kernel's `backward` and its phase-2
 backward error among its keys) and, last, the result line.
 Needs a CUDA card and the repository around this file.
@@ -1047,6 +1059,48 @@ def inpaint_face_lpips_config(images: str, val_lq: str, val_gt: str, val_mask: s
     return cfg
 
 
+def faceir_lpips_config(faces: str, val: str) -> dict:
+    """configs/faceir_gfpgan512_lpips.yaml as `load_yaml_config` gives it
+    (faceir with the LPIPS trainer), with the data paths replaced and no
+    VQGAN or LPIPS weights: the GFPGAN-style degradation of 512x512 faces,
+    the f8 VQGAN, batch 96 in microbatches of 12, validation on a folder of
+    faces without GT."""
+    from resshift_tpu_torch.config import task_config
+
+    cfg = task_config("faceir")
+    cfg["trainer"] = "difir_lpips"
+    cfg["autoencoder"]["ckpt_path"] = None
+    cfg["data"] = dict(
+        train=dict(type="gfpgan", params=dict(
+            dir_path=faces, out_size=512, blur_kernel_size=41, kernel_list=["iso", "aniso"],
+            kernel_prob=[0.5, 0.5], blur_sigma=[0.1, 10], downsample_range=[0.8, 8],
+            noise_range=[0, 20], jpeg_range=[60, 100], use_hflip=True, color_jitter_prob=None,
+            gray_prob=0.01)),
+        val=dict(type="base", params=dict(dir_path=val)))
+    cfg["train"] = dict(lr="5e-5", lr_schedule="cosin", batch=[96, 12], microbatch=12,
+                        iterations=400000, loss_coef=[1.0, 1.0], lpips_path=None)
+    return cfg
+
+
+def jpeg_probe_image():
+    """The seeded 37x53 RGB image whose JPEG round trips phase 19 holds to
+    `JPEG_DIGESTS`: a smooth field with noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(1914)
+    yy, xx = np.mgrid[0:37, 0:53]
+    field = np.stack([128 + 90 * np.sin(xx / 6 + c) * np.cos(yy / 5 - c) for c in range(3)], -1)
+    return np.clip(field + rng.normal(0, 12, field.shape), 0, 255).astype(np.uint8)
+
+
+# SHA-256 of OpenCV's JPEG round trip (imencode / imdecode, libjpeg-turbo)
+# of `jpeg_probe_image()` at each quality: pinned, and held equal to
+# OpenCV and to ops/jpeg.py, by tests/test_torch_jpeg.py
+JPEG_DIGESTS = {30: "7207dd356fb04a89d9baa81711c424d05621f07d0b73dc90a6381a5c349ab5c9",
+                60: "90a1fa9ac80bb423f1b8180db02adaa263755059738b5930bc07f6c5d319d2c1",
+                95: "82c6ae44ef8f6f3b8ca87f515ee21a91ee8b3e0731dce0d6de21af307fc2a1cb"}
+
+
 def write_train_data(root: Path, n_hq: int, n_val: int, n_pairs: int) -> dict:
     """Seeded synthetic PNGs (smooth random fields, written by the port's
     codec): `n_hq` 320x320 HQ images, `n_val` 64 -> 256 validation pairs and
@@ -1233,11 +1287,8 @@ def lpips_phase(dev, card: str, all_kernels: dict, read_launches, reset, launche
     """Phase 18: the LPIPS trainer at full width (see the module docstring).
     Returns its figures."""
     import numpy as np
-    import torch
 
-    from resshift_tpu_torch.ops import swin_block as sb
     from resshift_tpu_torch.ops.resize import resize_np
-    from resshift_tpu_torch.train_loop import Trainer
     from resshift_tpu_torch.utils.image_io import imwrite
 
     tmp = tempfile.TemporaryDirectory()
@@ -1274,77 +1325,186 @@ def lpips_phase(dev, card: str, all_kernels: dict, read_launches, reset, launche
                                             str(dirs["inp_gt"]), str(dirs["inp_mask"])))):
         n_iter = 3 if part == "a" else 2
         name = "bicx4_swinunet_lpips" if part == "a" else "inpaint_lama256_face"
-        print(f"  18({part}): configs/{name}.yaml, {n_iter} iterations at batch "
-              f"{cfg['train']['batch'][0]} in microbatches of {cfg['train']['microbatch']}, "
-              f"{workers} loader threads, then validation on 2 images", flush=True)
-        cfg["train"].update(log_freq=[1, 1000], val_freq=n_iter, save_freq=1000,
-                            num_workers=workers)
-        calls: dict[str, list] = {}
-        read = lambda: read_launches(all_kernels, sb)
-        torch.cuda.reset_peak_memory_stats()
-        tr = Trainer(cfg, save_dir=str(root / f"run_{part}"), dtype=torch.bfloat16, seed=0)
-        tr.train_step = counting(calls, tr.train_step, "steps", read, reset)
-        tr.validate = counting(calls, tr.validate, "validate", read, reset)
-        tr.train(stop_iter=n_iter)
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-        log = [json.loads(ln) for ln in
-               (root / f"run_{part}" / "train_log.jsonl").read_text().splitlines()]
-        steps = [m for m in log if "loss" in m]
-        if [m["iter"] for m in steps] != list(range(1, n_iter + 1)):
-            raise AssertionError(f"logged iterations {[m['iter'] for m in steps]}")
-        for m in steps:
-            print(f"  iteration {m['iter']}: loss {m['loss']:.5f} (mse {m['mse']:.5f}, lpips "
-                  f"{m['lpips']:.5f}), grad_norm {m['grad_norm']:.4f}, loader wait "
-                  f"{m['loader_ms']:.1f} ms, to the card {m['degrade_ms']:.1f} ms, step "
-                  f"{m['step_ms']:.1f} ms", flush=True)
-            if not (math.isfinite(m["loss"]) and math.isfinite(m["lpips"]) and m["lpips"] > 0
-                    and math.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
-                raise AssertionError(f"iteration {m['iter']}: loss, lpips or grad_norm not "
-                                     f"finite and > 0")
-        zero = [n for n, p in tr.step_fn.named
-                if p.grad is None or not p.grad.abs().max().item() > 0]
-        print(f"  UNet parameters with a nonzero gradient: {len(tr.step_fn.named) - len(zero)} "
-              f"of {len(tr.step_fn.named)}", flush=True)
-        if zero:
-            raise AssertionError(f"{len(zero)} UNet parameters without a gradient, e.g. "
-                                 f"{zero[:3]}")
-        # a step: C twice a microbatch (the encodes, under no_grad), nothing
-        # else: the decode under autograd runs pinned plain (no C, no D)
-        per_step = {k: 0 for k in calls["steps"][0]}
-        per_step["C"] = 2 * (tr.batch // tr.tcfg.microbatch)
-        print(f"  launches a step: {calls['steps']}", flush=True)
-        if any(got != per_step for got in calls["steps"]):
-            raise AssertionError(f"step launches {calls['steps']}, want {per_step} each")
-        want = validation_launches(cfg, tr.pipe.sched.num_timesteps)
-        (got,) = calls["validate"]
-        print(f"  launches in validation: {got} (derived: {want})", flush=True)
-        if got != want:
-            raise AssertionError(f"validation launches {got}, want {want}")
-        launches[f"18{part} step"], launches[f"18{part} validate"] = calls["steps"][0], got
-        val = [m for m in log if "val_psnr_y" in m]
-        if not (val and math.isfinite(val[0]["val_lpips"]) and val[0]["val_lpips"] > 0):
-            raise AssertionError(f"no finite val_lpips in the log: {val}")
-        later = tr.timings[1:]  # the first iteration builds the loader's threads
-        times = {k: statistics.median(t[k] for t in later)
-                 for k in ("loader_ms", "degrade_ms", "step_ms")}
-        it_ms = sum(times.values())
-        print(f"  18({part}): ms per iteration (median of iterations 2-{n_iter}): {it_ms:.1f} = "
-              f"loader wait {times['loader_ms']:.1f} + to the card {times['degrade_ms']:.1f} + "
-              f"step {times['step_ms']:.1f}; {tr.batch / (it_ms / 1e3):.2f} images/s "
-              f"({tr.batch / (times['step_ms'] / 1e3):.2f} in the step alone); loader wait per "
-              f"batch {[round(t['loader_ms'], 1) for t in tr.timings]} ms; peak "
-              f"max_memory_allocated {peak_gib:.2f} GiB; val_lpips {val[0]['val_lpips']:.4f}, "
-              f"val PSNR(Y) {val[0]['val_psnr_y']:.2f} dB (random weights); on {card}",
-              flush=True)
-        result[part] = {"ms_per_iteration": it_ms, **times, "peak_gib": peak_gib,
-                        "images_per_s": tr.batch / (it_ms / 1e3),
-                        "loader_ms_by_batch": [t["loader_ms"] for t in tr.timings],
-                        "val_lpips": val[0]["val_lpips"], "lpips": steps[-1]["lpips"]}
-        tr.loader.close()
-        del tr
-        torch.cuda.empty_cache()
+        result[part] = train_lpips(f"18{part}", name, cfg, n_iter, root / f"run_{part}", card,
+                                   all_kernels, read_launches, reset, launches, workers)
     tmp.cleanup()
     return result
+
+
+def faceir_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict,
+                 workers: int = 8) -> dict:
+    """Phase 19: faceir training at full width, `scripts celeba-faceir`, the
+    bsrgan loaders and the JAX-free JPEG round trip (see the module
+    docstring).  Returns its figures."""
+    import hashlib
+
+    import numpy as np
+
+    from resshift_tpu_torch.data.datasets import DataLoader, create_dataset
+    from resshift_tpu_torch.ops.jpeg import jpeg_roundtrip
+    from resshift_tpu_torch.ops.resize import resize_np
+    from resshift_tpu_torch.utils.image_io import imread, imwrite
+
+    # (c) first: integer arithmetic, so the bits must be those pinned here
+    probe = jpeg_probe_image()
+    got = {q: hashlib.sha256(jpeg_roundtrip(probe, q).tobytes()).hexdigest()
+           for q in JPEG_DIGESTS}
+    print(f"  19(c): JPEG round trip of the 37x53 probe at qualities {sorted(got)}: "
+          f"{'equal to' if got == JPEG_DIGESTS else 'DIFFERENT from'} OpenCV's pinned "
+          f"SHA-256 digests", flush=True)
+    if got != JPEG_DIGESTS:
+        raise AssertionError(f"JPEG digests {got}, want {JPEG_DIGESTS}")
+
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    rng = np.random.default_rng(19)
+    dirs = {k: root / k for k in ("faces", "val", "celeba")}
+    for d in dirs.values():
+        d.mkdir()
+
+    def face():
+        return np.clip(resize_np(rng.uniform(0, 1, (64, 64, 3)), (512, 512), "bilinear")
+                       + rng.normal(0, 0.03, (512, 512, 3)), 0, 1)
+
+    t1 = time.perf_counter()
+    for i in range(96):
+        imwrite(face(), dirs["faces"] / f"{i:03d}.png")
+    for i in range(2):
+        imwrite(face(), dirs["val"] / f"{i:03d}.png")
+    for i in range(4):
+        imwrite(face(), dirs["celeba"] / f"{i:03d}.png")
+    print(f"  data: 96 + 2 + 4 synthetic 512x512 face PNGs, written in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+
+    # (a) faceir training, then the test-set script
+    cfg = faceir_lpips_config(str(dirs["faces"]), str(dirs["val"]))
+    result = {"a": train_lpips("19a", "faceir_gfpgan512_lpips", cfg, 3, root / "run_a", card,
+                               all_kernels, read_launches, reset, launches, workers)}
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "resshift_tpu_torch.scripts", "celeba-faceir",
+                           "--source", str(dirs["celeba"]), "--out", str(root / "celeba_out")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"scripts celeba-faceir exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    for sub in ("lq", "gt"):
+        outs = sorted((root / "celeba_out" / sub).glob("*.png"))
+        shapes = {imread(f).shape for f in outs}
+        if len(outs) != 4 or shapes != {(512, 512, 3)}:
+            raise AssertionError(f"scripts celeba-faceir wrote {len(outs)} {sub} PNGs {shapes}")
+    result["celeba_faceir_s"] = time.perf_counter() - t1
+    print(f"  scripts celeba-faceir on 4 faces: 4 lq / gt pairs of 512x512 in "
+          f"{result['celeba_faceir_s']:.1f} s ({proc.stdout.strip()})", flush=True)
+
+    # (b) one batch of each BSRGAN chain on the loader's threads
+    for kind, chain in (("bsrgan", "bsrgan_light"), ("bsrganimagenet", "bsrgan")):
+        ds = create_dataset(dict(type=kind, params=dict(dir_path=str(dirs["faces"]), sf=4,
+                                                        gt_size=256, degradation=chain)))
+        loader = DataLoader(ds, batch_size=96, num_workers=workers, prefetch=0)
+        t1 = time.perf_counter()
+        batch = next(iter(loader))
+        ms = 1e3 * (time.perf_counter() - t1)
+        loader.close()
+        ok = (batch["gt"].shape == (96, 256, 256, 3) and batch["lq"].shape == (96, 64, 64, 3)
+              and all(np.isfinite(v).all() and np.abs(v).max() <= 1 for v in batch.values()))
+        print(f"  19(b): {kind} ({chain}) loader, 96 GT crops of 256 from the faces: gt "
+              f"{batch['gt'].shape}, lq {batch['lq'].shape}, in [-1, 1] and finite: {ok}; "
+              f"{ms:.1f} ms for the batch on {workers} threads", flush=True)
+        if not ok:
+            raise AssertionError(f"{kind} batch: gt {batch['gt'].shape}, lq {batch['lq'].shape}")
+        result[f"{kind}_batch_ms"] = ms
+    tmp.cleanup()
+    return result
+
+
+def train_lpips(tag: str, name: str, cfg: dict, n_iter: int, save_dir: Path, card: str,
+                all_kernels: dict, read_launches, reset, launches: dict, workers: int) -> dict:
+    """`Trainer.train(stop_iter=n_iter)` on the LPIPS trainer's `cfg` with
+    `workers` loader threads and validation at the last iteration, checked
+    (the losses, every UNet parameter's gradient, C twice a microbatch and
+    nothing else in a step, validation's launches as derived, val_lpips
+    where the val set has a GT) and timed.  Returns its figures."""
+    import torch
+
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.train_loop import Trainer
+
+    print(f"  {tag}: configs/{name}.yaml, {n_iter} iterations at batch "
+          f"{cfg['train']['batch'][0]} in microbatches of {cfg['train']['microbatch']}, "
+          f"{workers} loader threads, then validation on 2 images", flush=True)
+    cfg["train"].update(log_freq=[1, 1000], val_freq=n_iter, save_freq=1000,
+                        num_workers=workers)
+    calls: dict[str, list] = {}
+    read = lambda: read_launches(all_kernels, sb)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, save_dir=str(save_dir), dtype=torch.bfloat16, seed=0)
+    tr.train_step = counting(calls, tr.train_step, "steps", read, reset)
+    tr.validate = counting(calls, tr.validate, "validate", read, reset)
+    tr.train(stop_iter=n_iter)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    log = [json.loads(ln) for ln in (save_dir / "train_log.jsonl").read_text().splitlines()]
+    steps = [m for m in log if "loss" in m]
+    if [m["iter"] for m in steps] != list(range(1, n_iter + 1)):
+        raise AssertionError(f"logged iterations {[m['iter'] for m in steps]}")
+    for m in steps:
+        print(f"  iteration {m['iter']}: loss {m['loss']:.5f} (mse {m['mse']:.5f}, lpips "
+              f"{m['lpips']:.5f}), grad_norm {m['grad_norm']:.4f}, loader wait "
+              f"{m['loader_ms']:.1f} ms, to the card {m['degrade_ms']:.1f} ms, step "
+              f"{m['step_ms']:.1f} ms", flush=True)
+        if not (math.isfinite(m["loss"]) and math.isfinite(m["lpips"]) and m["lpips"] > 0
+                and math.isfinite(m["grad_norm"]) and m["grad_norm"] > 0):
+            raise AssertionError(f"iteration {m['iter']}: loss, lpips or grad_norm not "
+                                 f"finite and > 0")
+    zero = [n for n, p in tr.step_fn.named
+            if p.grad is None or not p.grad.abs().max().item() > 0]
+    print(f"  UNet parameters with a nonzero gradient: {len(tr.step_fn.named) - len(zero)} "
+          f"of {len(tr.step_fn.named)}", flush=True)
+    if zero:
+        raise AssertionError(f"{len(zero)} UNet parameters without a gradient, e.g. "
+                             f"{zero[:3]}")
+    # a step: C twice a microbatch (the encodes, under no_grad), nothing
+    # else: the decode under autograd runs pinned plain (no C, no D)
+    per_step = {k: 0 for k in calls["steps"][0]}
+    per_step["C"] = 2 * (tr.batch // tr.tcfg.microbatch)
+    print(f"  launches a step: {calls['steps']}", flush=True)
+    if any(got != per_step for got in calls["steps"]):
+        raise AssertionError(f"step launches {calls['steps']}, want {per_step} each")
+    want = validation_launches(cfg, tr.pipe.sched.num_timesteps)
+    (got,) = calls["validate"]
+    print(f"  launches in validation: {got} (derived: {want})", flush=True)
+    if got != want:
+        raise AssertionError(f"validation launches {got}, want {want}")
+    launches[f"{tag} step"], launches[f"{tag} validate"] = calls["steps"][0], got
+    val = [m for m in log if "val_psnr_y" in m]
+    if "extra_dir_path" in cfg["data"]["val"]["params"] or cfg["data"]["val"]["type"] != "base":
+        if not (val and math.isfinite(val[0]["val_lpips"]) and val[0]["val_lpips"] > 0):
+            raise AssertionError(f"no finite val_lpips in the log: {val}")
+        val_txt = (f"val_lpips {val[0]['val_lpips']:.4f}, val PSNR(Y) "
+                   f"{val[0]['val_psnr_y']:.2f} dB (random weights)")
+    else:  # a val set without GT: the restoration only
+        if val or not (save_dir / "images" / "val" / f"val_{n_iter:06d}.png").is_file():
+            raise AssertionError(f"validation without GT: metrics {val} or no restoration")
+        val_txt = "validation restored (no GT)"
+    later = tr.timings[1:]  # the first iteration builds the loader's threads
+    times = {k: statistics.median(t[k] for t in later)
+             for k in ("loader_ms", "degrade_ms", "step_ms")}
+    it_ms = sum(times.values())
+    print(f"  {tag}: ms per iteration (median of iterations 2-{n_iter}): {it_ms:.1f} = "
+          f"loader wait {times['loader_ms']:.1f} + to the card {times['degrade_ms']:.1f} + "
+          f"step {times['step_ms']:.1f}; {tr.batch / (it_ms / 1e3):.2f} images/s "
+          f"({tr.batch / (times['step_ms'] / 1e3):.2f} in the step alone); loader wait per "
+          f"batch {[round(t['loader_ms'], 1) for t in tr.timings]} ms; peak "
+          f"max_memory_allocated {peak_gib:.2f} GiB; {val_txt}; on {card}", flush=True)
+    out = {"ms_per_iteration": it_ms, **times, "peak_gib": peak_gib,
+           "images_per_s": tr.batch / (it_ms / 1e3),
+           "loader_ms_by_batch": [t["loader_ms"] for t in tr.timings],
+           "lpips": steps[-1]["lpips"]}
+    if val:
+        out["val_lpips"] = val[0]["val_lpips"]
+    tr.loader.close()
+    del tr
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_tools(root: Path) -> dict:
@@ -2307,6 +2467,12 @@ def main() -> int:
     print("phase 18: the LPIPS trainer at full width (bicsr, then inpaint_face), seeded "
           "random weights (LPIPS too: none ship), bf16 compute on f32 masters", flush=True)
     lpips_phase(dev, card, all_kernels, read_launches, reset, launches)
+
+    # ---------------------------------------------------------------- 19
+    print("phase 19: faceir training at full width (f8 VQGAN, UNet 160, GT 512), seeded "
+          "random weights, bf16 compute on f32 masters; scripts celeba-faceir; the bsrgan "
+          "loaders; the JPEG round trip", flush=True)
+    faceir_phase(dev, card, all_kernels, read_launches, reset, launches)
 
     rows = kernel_rows(launches, errs, timed)
     backward = {"A": "autograd Function: the plain version's gradient, recomputed",

@@ -1,5 +1,6 @@
-"""Host-side datasets and the loader (the port's own copy of the part of
-the JAX package's `data/datasets.py` that realsr training runs).
+"""Host-side datasets and the loader (the port's own copy of the JAX
+package's `data/datasets.py`, without its packed-file and memcached
+backends).
 
   * `BaseData` (realsr's `val` type): images from a folder or a txt
     listing, with the paired GT from `extra_dir_path`;
@@ -10,13 +11,18 @@ the JAX package's `data/datasets.py` that realsr training runs).
     one of 8 ways; `InpaintingData`: LaMa distortions of the image and a
     LaMa mask (`masks.py`, `distortions.py`); `InpaintingValData`: lq /
     gt / mask triplets from folders;
+  * `GFPGANData` (faceir's `gfpgan`): a face, flipped at random, and its
+    GFPGAN-style degradation (`faces.py`); `BSRGANData` (`bsrgan`,
+    `bsrganimagenet`): GT crops and the BSRGAN light or full chain
+    (`bsrgan.py`); `SIDDValData` (`siddval`): noisy / clean pairs;
+    `DegradedDataFromSource` (`deg_from_source`): images through a
+    caller's degrade function;
   * `create_dataset` (the `type` factory) and `DataLoader` (epoch
     shuffling from (seed, epoch), `skip_batches` to resume, `num_workers`
     threads each with a reseeded deep copy of the dataset).
 Images are NHWC float32, normalised to [-1, 1] (mean = std = 0.5) except
-`RealESRGANData`'s GT, which the degrader takes in [0, 1].  The other
-dataset types of the JAX package, packed files and memcached raise
-NotImplementedError: ROADMAP.md section 1 lists them.
+`RealESRGANData`'s GT, which the degrader takes in [0, 1].  Packed files
+and memcached raise NotImplementedError: ROADMAP.md section 1 lists them.
 """
 
 from __future__ import annotations
@@ -34,13 +40,14 @@ import numpy as np
 from ..ops.resize import imresize_matlab, resize_np
 from ..utils.image_io import imread, list_images
 from . import degradations as deg
+from .faces import ffhq_degrade
 from .masks import MixedMaskGenerator
 
 __all__ = ["create_dataset", "DataLoader", "BaseData", "RealESRGANData", "BicubicData",
-           "InpaintingData", "InpaintingValData"]
+           "InpaintingData", "InpaintingValData", "GFPGANData", "BSRGANData", "SIDDValData",
+           "DegradedDataFromSource"]
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md section 1: the other dataset types, packed "
-               "files and memcached)")
+_NOT_PORTED = "is not ported yet (ROADMAP.md section 1: packed files and memcached)"
 
 
 def _collect_paths(dir_path=None, dir_paths=None, txt_path=None, txt_file_path=None,
@@ -356,17 +363,151 @@ class InpaintingValData:
         return out
 
 
+class GFPGANData:
+    """Faces and their GFPGAN-style degradation (`faces.ffhq_degrade`): the
+    face flipped with probability 1/2 (when `use_hflip`), then blurred,
+    downsampled, noised, JPEG-compressed and resized back; gt and lq
+    normalised by `mean` / `std`.  One generator draws the paths' subset,
+    the flips and the degradations."""
+
+    def __init__(self, dir_path, im_exts="png", use_hflip=True, mean=(0.5,) * 3,
+                 std=(0.5,) * 3, out_size=512, length=None, seed=0,
+                 need_gt_path=False, **kwargs):
+        self.rng = np.random.default_rng(seed)
+        self.paths = _collect_paths(dir_path=dir_path, recursive=True,
+                                    length=length, rng=self.rng)
+        self.use_hflip = use_hflip
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.out_size = out_size
+        keys = ("blur_kernel_size", "kernel_list", "kernel_prob", "blur_sigma",
+                "downsample_range", "noise_range", "jpeg_range",
+                "color_jitter_prob", "gray_prob", "gt_gray")
+        self.deg_kwargs = {k: kwargs[k] for k in keys if k in kwargs}
+        self.need_path = need_gt_path
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        rng = self.rng
+        gt = imread(self.paths[i])
+        if rng.uniform() < 0.5 and self.use_hflip:
+            gt = np.ascontiguousarray(gt[:, ::-1])
+        gt, lq = ffhq_degrade(rng, gt, **self.deg_kwargs)
+        out = {"gt": (gt - self.mean) / self.std, "lq": (lq - self.mean) / self.std}
+        if self.need_path:
+            out["path"] = str(self.paths[i])
+        return out
+
+
+class BSRGANData:
+    """BSRGAN pairs: a GT crop of `gt_size` (the image first upscaled by
+    torch's bicubic where its short side is smaller), then the light
+    ('bsrgan_light', the default) or full ('bsrgan') chain.  The full
+    chain's `lq_patchsize` defaults to gt_size // sf, so the pair keeps
+    `gt_size`."""
+
+    def __init__(self, dir_path=None, txt_file_path=None, sf=4, gt_size=256,
+                 use_sharp=False, mean=0.5, std=0.5, length=None, need_path=False,
+                 im_exts="png", recursive=False, seed=0,
+                 degradation="bsrgan_light", lq_patchsize=None, **_):
+        if degradation not in ("bsrgan", "bsrgan_light"):
+            raise ValueError(
+                f"Except bsrgan or bsrgan_light for degradation, now is {degradation}")
+        self.rng = np.random.default_rng(seed)
+        self.paths = _collect_paths(dir_path=dir_path, txt_file_path=txt_file_path,
+                                    recursive=recursive, length=length, rng=self.rng)
+        self.sf, self.gt_size, self.use_sharp = sf, gt_size, use_sharp
+        self.mean, self.std = mean, std
+        self.need_path = need_path
+        self.degradation = degradation
+        self.lq_patchsize = lq_patchsize if lq_patchsize is not None else gt_size // sf
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        from .bsrgan import degradation_bsrgan, degradation_bsrgan_light
+
+        rng = self.rng
+        im = imread(self.paths[i])
+        h, w = im.shape[:2]
+        if min(h, w) < self.gt_size:
+            s = self.gt_size / min(h, w)
+            im = resize_np(im, (max(self.gt_size, round(h * s)),
+                                max(self.gt_size, round(w * s))), "bicubic_torch")
+            h, w = im.shape[:2]
+        top = int(rng.integers(0, h - self.gt_size + 1))
+        left = int(rng.integers(0, w - self.gt_size + 1))
+        im = np.ascontiguousarray(im[top:top + self.gt_size, left:left + self.gt_size])
+        if self.degradation == "bsrgan":
+            lq, gt = degradation_bsrgan(rng, im, sf=self.sf, lq_patchsize=self.lq_patchsize,
+                                        use_sharp=self.use_sharp)
+        else:
+            lq, gt = degradation_bsrgan_light(rng, im, sf=self.sf, use_sharp=self.use_sharp)
+        out = {"gt": _normalize(gt, self.mean, self.std),
+               "lq": _normalize(np.clip(lq, 0, 1), self.mean, self.std)}
+        if self.need_path:
+            out["path"] = str(self.paths[i])
+        return out
+
+
+class SIDDValData:
+    """Paired noisy / clean validation images, matched by sorted order."""
+
+    def __init__(self, noisy_path, gt_path, mean=0.5, std=0.5, **_):
+        self.noisy = sorted(list_images(noisy_path))
+        self.gt = sorted(list_images(gt_path))
+        if len(self.noisy) != len(self.gt):
+            raise ValueError(f"{len(self.noisy)} noisy images against {len(self.gt)} clean")
+        self.mean, self.std = mean, std
+
+    def __len__(self):
+        return len(self.noisy)
+
+    def __getitem__(self, i):
+        return {"lq": _normalize(imread(self.noisy[i]), self.mean, self.std),
+                "gt": _normalize(imread(self.gt[i]), self.mean, self.std)}
+
+
+class DegradedDataFromSource:
+    """Source images through `degrade_fn(rng, im) -> (lq, gt)` (identity
+    pairs without one), drawn from the dataset's generator."""
+
+    def __init__(self, source_path=None, source_txt_path=None, degrade_fn=None,
+                 mean=0.5, std=0.5, length=None, need_path=False, im_exts="png",
+                 recursive=False, seed=0, **_):
+        self.rng = np.random.default_rng(seed)
+        self.paths = _collect_paths(dir_path=source_path, txt_file_path=source_txt_path,
+                                    recursive=recursive, length=length, rng=self.rng)
+        self.degrade_fn = degrade_fn or (lambda rng, im: (im, im))
+        self.mean, self.std = mean, std
+        self.need_path = need_path
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, i):
+        im = imread(self.paths[i])
+        lq, gt = self.degrade_fn(self.rng, im)
+        out = {"gt": _normalize(gt, self.mean, self.std),
+               "lq": _normalize(lq, self.mean, self.std)}
+        if self.need_path:
+            out["path"] = str(self.paths[i])
+        return out
+
+
 _FACTORY = {"base": BaseData, "realesrgan": RealESRGANData, "bicubic": BicubicData,
-            "inpainting": InpaintingData, "inpainting_val": InpaintingValData}
-_JAX_ONLY = ("gfpgan", "bsrgan", "bsrganimagenet", "siddval", "deg_from_source")
+            "inpainting": InpaintingData, "inpainting_val": InpaintingValData,
+            "gfpgan": GFPGANData, "bsrgan": BSRGANData, "bsrganimagenet": BSRGANData,
+            "siddval": SIDDValData, "deg_from_source": DegradedDataFromSource}
 
 
 def create_dataset(config: dict):
     """The dataset of `config['type']` with `config['params']` (the
     reference's `transform_kwargs` mean/std flattened in)."""
     kind = config["type"]
-    if kind in _JAX_ONLY:
-        raise NotImplementedError(f"dataset type '{kind}' {_NOT_PORTED}")
     if kind not in _FACTORY:
         raise ValueError(f"unknown dataset type '{kind}'; have {sorted(_FACTORY)}")
     params = dict(config.get("params", {}))

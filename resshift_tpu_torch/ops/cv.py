@@ -1,6 +1,7 @@
-"""Numpy stand-ins for the OpenCV calls that the inpainting data makes (the
-LaMa masks and distortions), so that the port runs where OpenCV is not
-installed.  Each function names the call it replaces, with its flags.
+"""Numpy stand-ins for the OpenCV calls that the data paths make (the LaMa
+masks and distortions; the face and BSRGAN degradations' float32 resizes,
+filter2D and gray), so that the port runs where OpenCV is not installed.
+Each function names the call it replaces, with its flags.
 
 They follow OpenCV's integer arithmetic where it is practical: the
 fixed-point resize (11-bit coefficients), the 8-bit HSV conversion with its
@@ -9,8 +10,12 @@ the rasteriser of thick lines (a fixed-point convex polygon with rounded
 caps) and filled circles, and the 8-bit RGB -> LAB tables.  The warps and
 remap follow OpenCV 5's float32 bilinear kernel.  LAB -> RGB is computed
 from OpenCV's formulas in floating point, where OpenCV uses integer tables.
-The bands that remain are measured against OpenCV in the port's tests and
-listed in ROADMAP.md section 3.
+The float32 resizes follow OpenCV 5's arithmetic: INTER_LINEAR as a fused
+multiply-add lerp along each axis, INTER_AREA's tables and its integer-ratio
+sums in OpenCV's order; INTER_CUBIC's sums are not OpenCV's (a few ulp).
+filter2D with a large kernel is a float64 FFT, rounded once.  The bands that
+remain are measured against OpenCV in the port's tests and listed in
+ROADMAP.md section 3.
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import math
 
 import numpy as np
 
-__all__ = ["resize_linear", "get_perspective_transform", "warp_perspective", "warp_affine",
+__all__ = ["resize_linear", "resize_float", "filter2d", "rgb_to_gray_float",
+           "get_perspective_transform", "warp_perspective", "warp_affine",
            "copy_make_border_reflect101", "init_undistort_rectify_map", "remap",
            "rgb_to_lab", "lab_to_rgb", "clahe", "rgb_to_hsv", "hsv_to_rgb", "line", "circle"]
 
@@ -80,6 +86,178 @@ def resize_linear(im: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:
     r0, r1 = horiz[sy] >> 4, horiz[sy1] >> 4
     v = ((r0 * row(by0)) >> 16) + ((r1 * row(by1)) >> 16)
     return _sat_u8((v + 2) >> 2)
+
+
+# ------------------------------------------------------------------ float32
+
+def _coord_taps(n_in: int, n_out: int, area_mode: bool = False):
+    """The source index and float32 fractional offset of each output
+    sample along one axis, as cv::resize computes them from scale = 1 /
+    (n_out / n_in): INTER_LINEAR's offset in double, rounded to float32 (an
+    offset that rounds up to 1 moves to the next source with offset 0);
+    INTER_AREA's enlarging mode floor(d * scale) and the float32 fraction of
+    (d + 1) - (s + 1) / scale."""
+    inv = n_out / n_in
+    scale = 1.0 / inv
+    d = np.arange(n_out, dtype=np.float64)
+    if area_mode:
+        s = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (s + 1) * inv).astype(np.float32)
+        return s, np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    f = (d + 0.5) * scale - 0.5
+    s = np.floor(f).astype(np.int64)
+    f = (f - s).astype(np.float32)
+    up = f >= 1
+    return s + up, np.where(up, np.float32(0), f)
+
+
+def _linear_axis(x: np.ndarray, n_out: int, axis: int, area_mode: bool) -> np.ndarray:
+    """INTER_LINEAR along one axis of float32 x: a source index left of 0
+    or at the last sample takes that sample alone (offset 0).  OpenCV 5's
+    INTER_LINEAR lerps as fma(p1 - p0, f, p0); its INTER_AREA enlarging
+    path (the older kernel) as p0 * (1 - f) + p1 * f, each rounded."""
+    n_in = x.shape[axis]
+    s, f = _coord_taps(n_in, n_out, area_mode)
+    f = np.where((s < 0) | (s >= n_in - 1), np.float32(0), f)
+    s = np.clip(s, 0, n_in - 1)
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    f = f.reshape(shape)
+    p0 = np.take(x, s, axis)
+    p1 = np.take(x, np.minimum(s + 1, n_in - 1), axis)
+    if area_mode:
+        return p0 * (np.float32(1) - f) + p1 * f
+    return _fma32(f, p1 - p0, p0)
+
+
+def _cubic_axis(x: np.ndarray, n_out: int, axis: int) -> np.ndarray:
+    """INTER_CUBIC (A = -0.75) along one axis of float32 x, the taps
+    clamped to the edge; the four weights from the double offset, rounded
+    to float32, the sum in float64 rounded once (OpenCV's float32 sums
+    differ from it by a few ulp)."""
+    n_in = x.shape[axis]
+    s, f = _coord_taps(n_in, n_out)
+    a = -0.75
+    f = f.astype(np.float64)
+    c0 = ((a * (f + 1) - 5 * a) * (f + 1) + 8 * a) * (f + 1) - 4 * a
+    c1 = ((a + 2) * f - (a + 3)) * f * f + 1
+    c2 = ((a + 2) * (1 - f) - (a + 3)) * (1 - f) * (1 - f) + 1
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    out = np.zeros(x.shape[:axis] + (n_out,) + x.shape[axis + 1:], np.float64)
+    for j, c in enumerate((c0, c1, c2, 1 - c0 - c1 - c2)):
+        tap = np.take(x, np.clip(s + j - 1, 0, n_in - 1), axis)
+        out += tap * c.astype(np.float32).astype(np.float64).reshape(shape)
+    return out.astype(np.float32)
+
+
+def _area_table(n_in: int, n_out: int, scale: float):
+    """computeResizeAreaTab: for each output sample, its source indices and
+    float32 weights in OpenCV's order, padded to one width (weight 0)."""
+    rows = []
+    for d in range(n_out):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        cell = min(scale, n_in - fs1)
+        s2 = min(math.floor(fs2), n_in - 1)
+        s1 = min(math.ceil(fs1), s2)
+        taps = []
+        if s1 - fs1 > 1e-3:
+            taps.append((s1 - 1, (s1 - fs1) / cell))
+        taps += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if fs2 - s2 > 1e-3:
+            taps.append((s2, min(min(fs2 - s2, 1.0), cell) / cell))
+        rows.append(taps)
+    k = max(len(t) for t in rows)
+    idx = np.zeros((n_out, k), np.int64)
+    wt = np.zeros((n_out, k), np.float32)
+    for d, taps in enumerate(rows):
+        for j, (s, w) in enumerate(taps):
+            idx[d, j], wt[d, j] = s, w
+    return idx, wt
+
+
+def _area_axis(x: np.ndarray, n_out: int, axis: int, scale: float) -> np.ndarray:
+    """INTER_AREA shrinking along one axis: each output the float32 sum of
+    its weighted sources in table order (an empty slot adds 0 * x)."""
+    idx, wt = _area_table(x.shape[axis], n_out, scale)
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    acc = np.take(x, idx[:, 0], axis) * wt[:, 0].reshape(shape)
+    for j in range(1, idx.shape[1]):
+        acc = acc + np.take(x, idx[:, j], axis) * wt[:, j].reshape(shape)
+    return acc
+
+
+def _area_fast(x: np.ndarray, sx: int, sy: int) -> np.ndarray:
+    """INTER_AREA at integer ratios: the sx * sy sources of each output in
+    row-major order, summed four at a time as OpenCV's unrolled loop sums
+    them, times float32(1 / (sx * sy))."""
+    h, w = x.shape[0] // sy, x.shape[1] // sx
+    src = [x[i::sy, j::sx][:h, :w] for i in range(sy) for j in range(sx)]
+    total = np.zeros_like(src[0])
+    k = 0
+    while k + 4 <= len(src):
+        total = total + (((src[k] + src[k + 1]) + src[k + 2]) + src[k + 3])
+        k += 4
+    for s in src[k:]:
+        total = total + s
+    return total * np.float32(1.0 / (sx * sy))
+
+
+def resize_float(im: np.ndarray, size_wh: tuple[int, int], interpolation: str) -> np.ndarray:
+    """cv2.resize(im, (w, h), interpolation=cv2.INTER_LINEAR | INTER_CUBIC |
+    INTER_AREA) on a float32 H x W [x C] image: "linear", "cubic" or
+    "area".  The same size returns a copy, as OpenCV does."""
+    x = np.asarray(im, np.float32)
+    w_out, h_out = size_wh
+    h_in, w_in = x.shape[:2]
+    if (h_out, w_out) == (h_in, w_in):
+        return x.copy()
+    if interpolation == "linear":
+        return _linear_axis(_linear_axis(x, w_out, 1, False), h_out, 0, False)
+    if interpolation == "cubic":
+        return _cubic_axis(_cubic_axis(x, w_out, 1), h_out, 0)
+    if interpolation != "area":
+        raise ValueError(f"interpolation {interpolation!r}: want linear, cubic or area")
+    scale_x, scale_y = 1.0 / (w_out / w_in), 1.0 / (h_out / h_in)
+    if scale_x >= 1 and scale_y >= 1:
+        ix, iy = round(scale_x), round(scale_y)
+        eps = np.finfo(np.float64).eps
+        if abs(scale_x - ix) < eps and abs(scale_y - iy) < eps:
+            return _area_fast(x, ix, iy)
+        return _area_axis(_area_axis(x, w_out, 1, scale_x), h_out, 0, scale_y)
+    return _linear_axis(_linear_axis(x, w_out, 1, True), h_out, 0, True)
+
+
+def filter2d(im: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """cv2.filter2D(im, -1, kernel) on a float32 H x W [x C] image: the
+    correlation with `kernel` (anchor at its centre) over a
+    BORDER_REFLECT_101 border.  Computed as a float64 FFT convolution with
+    the flipped kernel (OpenCV filters large kernels through the DFT),
+    rounded once to float32; scipy.fft's transforms release the GIL, so
+    loader threads filter in parallel."""
+    from scipy import fft
+
+    x = np.asarray(im, np.float32)
+    k = np.asarray(kernel, np.float64)
+    kh, kw = k.shape
+    ph, pw = kh // 2, kw // 2
+    pad = copy_make_border_reflect101(x, ph, kh - 1 - ph, pw, kw - 1 - pw).astype(np.float64)
+    h, w = pad.shape[:2]
+    shape = (fft.next_fast_len(h, True), fft.next_fast_len(w, True))
+    spec = fft.rfft2(k[::-1, ::-1], s=shape).reshape(shape[:1] + (-1,) + (1,) * (x.ndim - 2))
+    out = fft.irfft2(fft.rfft2(pad, s=shape, axes=(0, 1)) * spec, s=shape, axes=(0, 1))
+    return out[kh - 1:h, kw - 1:w].astype(np.float32)
+
+
+def rgb_to_gray_float(im: np.ndarray) -> np.ndarray:
+    """cv2.cvtColor(im, cv2.COLOR_RGB2GRAY) on float32 H x W x 3: 0.299 R +
+    0.587 G + 0.114 B as OpenCV's vector path computes it, fma(B, 0.114,
+    fma(R, 0.299, G * 0.587)) in float32."""
+    x = np.asarray(im, np.float32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    return _fma32(np.float32(0.114), b, _fma32(np.float32(0.299), r, g * np.float32(0.587)))
 
 
 # ------------------------------------------------------------------ warps

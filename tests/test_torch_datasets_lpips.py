@@ -111,11 +111,14 @@ def test_inpainting_val_items_equal(files):
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("kind", ["gfpgan", "bsrgan", "bsrganimagenet", "siddval",
-                                  "deg_from_source"])
-def test_left_out_types_name_the_roadmap(kind):
+@pytest.mark.parametrize("kind,params", [
+    ("base", dict(pack_path="x.pack")), ("base", dict(extra_pack_path="x.pack")),
+    ("base", dict(io_backend=dict(type="memcached"))), ("realesrgan", dict(pack_path="x.pack")),
+    ("realesrgan", dict(io_backend=dict(type="memcached")))])
+def test_left_out_types_name_the_roadmap(kind, params):
+    """Every dataset type is ported; packed files and memcached are not."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.create_dataset(dict(type=kind, params={}))
+        tds.create_dataset(dict(type=kind, params=params))
 
 
 MODEL = dict(image_size=16, in_channels=3, model_channels=32, out_channels=3,

@@ -230,8 +230,6 @@ def test_realesrgan_items_bit_identical(hq_dir, kw):
 
 def test_other_dataset_types_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.create_dataset(dict(type="gfpgan", params={}))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tds.create_dataset(dict(type="base", params=dict(pack_path="x.pack")))
 
 

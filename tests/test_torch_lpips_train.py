@@ -1,8 +1,9 @@
 """The LPIPS trainer of the port against the JAX package's, on the CPU in f32.
 
   * one LPIPS train step (two microbatches) for a bicsr-like model (x4 SR,
-    LQ conditioning) and an inpainting-like one (x1, LQ feature pyramid and
-    mask), tiny UNet, VQGAN and the full VGG16 trunk at 64x64, against
+    LQ conditioning), an inpainting-like one (x1, LQ feature pyramid and
+    mask) and a faceir-like one (x1, an f8-style VQGAN, the LQ pyramid from
+    64 to 8), tiny UNet, VQGAN and the full VGG16 trunk at 64x64, against
     `resshift_tpu.trainer.make_train_step(..., lpips_fn=...)` given the same
     weights and JAX's draws: loss, mse and lpips within rtol 1e-4; every
     gradient (mu / (1 - b1) of the JAX AdamW state) within 4 times the
@@ -47,8 +48,8 @@ from resshift_tpu_torch.utils.image_io import imwrite
 torch.set_num_threads(2)
 
 
-def _model(lq_size, cond_mask):
-    return dict(image_size=16, in_channels=3, model_channels=32, out_channels=3,
+def _model(lq_size, cond_mask, image_size=16, ch=3):
+    return dict(image_size=image_size, in_channels=ch, model_channels=32, out_channels=ch,
                 attention_resolutions=[8], dropout=0.0, channel_mult=[1, 2],
                 num_res_blocks=[1, 1], conv_resample=True, num_head_channels=16,
                 use_scale_shift_norm=True, resblock_updown=False, swin_depth=2,
@@ -56,21 +57,27 @@ def _model(lq_size, cond_mask):
                 cond_mask=cond_mask, lq_size=lq_size)
 
 
-def _config(sf, lq_size, cond_mask):
+def _config(sf, lq_size, cond_mask, ddconfig=None):
+    dd = ddconfig or DDCONFIG
     return dict(
-        task="test", sf=sf, model=_model(lq_size, cond_mask),
+        task="test", sf=sf, model=_model(lq_size, cond_mask, 64 >> (len(dd["ch_mult"]) - 1),
+                                         dd["z_channels"]),
         diffusion=dict(schedule_name="exponential", steps=4, min_noise_level=0.2,
                        etas_end=0.99, kappa=2.0, power=0.3, predict_type="xstart",
                        timestep_respacing=None, normalize_input=True, latent_flag=True,
                        scale_factor=1.0, sf=sf),
-        autoencoder=dict(embed_dim=3, n_embed=64, ddconfig=DDCONFIG),
+        autoencoder=dict(embed_dim=dd["z_channels"], n_embed=64, ddconfig=dd),
         inference=dict(chop_size=16 * 4 // sf, chop_stride=12 * 4 // sf, padding_offset=16))
 
 
 DDCONFIG = dict(double_z=False, z_channels=3, resolution=64, in_channels=3, out_ch=3, ch=32,
                 ch_mult=[1, 2, 4], num_res_blocks=1, attn_resolutions=[], dropout=0.0)
 # bicsr: x4 from 16x16; inpainting: x1 at 64x64 with the mask (an LQ pyramid)
-KINDS = {"bicsr": (_config(4, 16, False), 16), "inpaint": (_config(1, 64, True), 64)}
+# faceir: x1 at 64x64 through an f8-style VQGAN (4 latent channels, 8x8
+# latent) and the LQ pyramid from 64 down to 8
+F8_DDCONFIG = dict(DDCONFIG, z_channels=4, ch_mult=[1, 2, 2, 4])
+KINDS = {"bicsr": (_config(4, 16, False), 16), "inpaint": (_config(1, 64, True), 64),
+         "faceir": (_config(1, 64, False, F8_DDCONFIG), 64)}
 TRAIN = dict(lr=1e-3, lr_min=2e-4, lr_schedule="cosin", warmup_iterations=2, iterations=10,
              weight_decay=0.01, ema_rate=0.9, microbatch=2, loss_coef=(1.0, 0.5))
 B1 = 0.9
@@ -94,13 +101,13 @@ def _batch(kind, seed=0, n=4):
     return out
 
 
-def _draws(key, sched_t, n_micro, mb):
+def _draws(key, sched_t, n_micro, mb, latent=(16, 16, 3)):
     """(t, noise) of each microbatch, split from `key` as the JAX step does."""
     out = []
     for k in jax.random.split(key, n_micro):
         kt, kn, _ = jax.random.split(k, 3)
         t = jax.random.randint(kt, (mb,), 0, sched_t)
-        noise = jax.random.normal(kn, (mb, 16, 16, 3), dtype=jnp.float32)
+        noise = jax.random.normal(kn, (mb,) + latent, dtype=jnp.float32)
         out.append((torch.tensor(np.asarray(t)).long(), torch.tensor(np.asarray(noise))))
     return out
 
@@ -125,7 +132,8 @@ def steps(request):
             lpips.lins[i].model[1].weight.uniform_(0, 1, generator=gen)
     np_sd = lambda m: {k: v.numpy() for k, v in m.state_dict().items()}
     params = {"unet": convert_unet_swin(np_sd(tp.unet), **_walk(cfg)),
-              "vqgan": convert_vqgan(np_sd(tp.vq), ch_mult=[1, 2, 4], num_res_blocks=1)}
+              "vqgan": convert_vqgan(np_sd(tp.vq), ch_mult=cfg["autoencoder"]["ddconfig"][
+                  "ch_mult"], num_res_blocks=1)}
     lp = convert_lpips(np_sd(lpips))
     pipe = JPipe(cfg, dtype=jnp.float32)
     jcfg = jtrainer.TrainConfig(**TRAIN)
@@ -138,7 +146,9 @@ def steps(request):
 
     step = TrainStep(tp, TrainConfig(**TRAIN), lpips=lpips)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    draws = _draws(key, tp.sched.num_timesteps, 2, 2)
+    side = cfg["model"]["image_size"]
+    draws = _draws(key, tp.sched.num_timesteps, 2, 2,
+                   (side, side, cfg["model"]["in_channels"]))
     with torch.backends.mkldnn.flags(enabled=False):  # the same step on other conv kernels
         step.grads(tbatch, draws=draws)
     alt = {n: p.grad.clone() for n, p in step.named}
