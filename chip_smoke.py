@@ -153,8 +153,30 @@ bit;
      (b) one batch of 96 from the `bsrgan` (light chain) and
      `bsrganimagenet` (full chain) loaders at GT 256 on 8 threads: shapes,
      range, time;
+ 20. the architecture options and the trainable variants, seeded random
+     weights: (a) realsr_v1 at full width (bf16, 15 steps, 8 x 64x64 tiles)
+     through `sample` twice, once with `resblock_updown`, `patch_norm` and
+     `use_scale_shift_norm: false`, once with `conv_resample: false`: A-D's
+     launches as `expected_launches` derives them, the image >= 35 dB PSNR
+     against the same model's `clone(use_pallas=False)` (which must launch
+     nothing), ms per call; (b) `AutoencoderKL` at latent-diffusion's KL-f16
+     first-stage shape (`KL_F16`), encode and decode of 4 x 256x256 in bf16:
+     C once per attention block (`kl_attention_blocks`) and nothing else, F
+     at the tail when the decoder is pinned True, the reconstruction >= 35
+     dB against the plain clone, a seeded posterior sample off the mode;
+     (c) `UNetModel` and `UNetModelConv` at the JAX defaults' widths
+     (`VARIANT_WIDTHS`), batch 8 of 64x64 with a 128x128 LQ
+     pixel-unshuffled: one forward and backward each in f32 and bf16 (ms,
+     peak memory, finite gradients, no kernel launched), bf16 against f32 >=
+     35 dB; (d) pixel-space training (`autoencoder: null`) at
+     tools/train_proof.py's settings (`pixel_train_config`) on 32 synthetic
+     64x64 pairs packed by `python -m resshift_tpu_torch.scripts pack` and
+     read through `pack_path` / `extra_pack_path` by the native reader: 3
+     iterations, finite losses, no launch in a step, A and B in validation
+     as derived, ms per iteration split as in phase 17;
 then print the `kernels` JSON line (each kernel's `backward` and its phase-2
-backward error among its keys) and, last, the result line.
+backward error among its keys; every phase's launches under
+`launches_by_phase`) and, last, the result line.
 Needs a CUDA card and the repository around this file.
 """
 
@@ -1507,6 +1529,357 @@ def train_lpips(tag: str, name: str, cfg: dict, n_iter: int, save_dir: Path, car
     return out
 
 
+# latent-diffusion's KL-f16 first stage (models/first_stage_models/kl-f16/config.yaml)
+KL_F16 = dict(double_z=True, z_channels=16, resolution=256, in_channels=3, out_ch=3, ch=128,
+              ch_mult=[1, 1, 2, 2, 4], num_res_blocks=2, attn_resolutions=[16], dropout=0.0)
+# the JAX package's UNetModel / UNetModelConv defaults at a 64x64 input and its
+# 128x128 LQ, pixel-unshuffled (3 + 12 input channels)
+VARIANT_WIDTHS = dict(model_channels=160, channel_mult=(1, 2, 4, 8), num_res_blocks=2)
+# tools/train_proof.py's pixel-space model (autoencoder: null) and diffusion
+PIXEL_MODEL = dict(image_size=64, in_channels=3, model_channels=64, out_channels=3,
+                   attention_resolutions=[64, 32, 16], dropout=0.0, channel_mult=[1, 2, 2],
+                   num_res_blocks=[2, 2, 2], conv_resample=True, num_head_channels=32,
+                   use_scale_shift_norm=True, resblock_updown=False, swin_depth=2,
+                   swin_embed_dim=96, window_size=8, mlp_ratio=4, cond_lq=True,
+                   cond_mask=False, lq_size=64)
+
+
+def db(x, y, peak: float | None = None) -> float:
+    """PSNR of x against y in dB, peak |y|'s largest value unless given."""
+    x, y = x.double(), y.double()
+    peak = y.abs().max().item() if peak is None else peak
+    return 10 * math.log10(peak ** 2 / max(((x - y) ** 2).mean().item(), 1e-30))
+
+
+def with_biases(p) -> dict:
+    """The state_dicts of pipeline `p` with every all-zero tensor (biases,
+    the zero-initialised output convs) redrawn, so that every branch reaches
+    the output: phase 3's random weights over `p.init_params`."""
+    import torch
+
+    gw = torch.Generator().manual_seed(1)
+    return {name: {k: v if v.any() else (0.02 * torch.randn(v.shape, generator=gw)).to(v.device)
+                   for k, v in mod.state_dict().items()}
+            for name, mod in (("unet", p.unet), ("vqgan", p.vq))}
+
+
+def seeded_weights(module, seed: int) -> None:
+    """Every parameter of `module` drawn from a seeded CPU generator, none
+    zero: weights N(0, 1 / fan_in), norm scales 1 + N(0, 0.05), biases and
+    the rest N(0, 0.02)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            r = torch.randn(p.shape, generator=g)
+            if p.dim() >= 2:
+                p.copy_(r / p[0].numel() ** 0.5)
+            elif name.endswith("weight"):
+                p.copy_(1 + 0.05 * r)
+            else:
+                p.copy_(0.02 * r)
+
+
+def kl_attention_blocks(dd: dict) -> int:
+    """AttnBlocks of one encode and one decode of an autoencoder with
+    `ddconfig` dd: each middle block's, and one after every ResnetBlock of a
+    level whose resolution is in attn_resolutions (the decoder's levels
+    hold num_res_blocks + 1)."""
+    mult, attn = dd["ch_mult"], set(dd["attn_resolutions"])
+    nrb = dd["num_res_blocks"]
+    nrb = [nrb] * len(mult) if isinstance(nrb, int) else list(nrb)
+    res = [dd["resolution"] // 2 ** i for i in range(len(mult))]
+    return 2 + sum(n + (n + 1) for n, r in zip(nrb, res) if r in attn)
+
+
+def unet_options_phase(dev, card: str, all_kernels: dict, read_launches, reset,
+                       launches: dict, base: dict | None = None, batch: int = BSZ) -> dict:
+    """Phase 20(a): `sample` at realsr_v1's widths under the UNet options
+    (see the module docstring).  Returns its figures."""
+    import copy
+
+    import torch
+
+    from resshift_tpu_torch.config import task_config
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.pipeline import ResShiftPipeline
+
+    base = base or task_config("realsr_v1")
+    lq = torch.rand(batch, 64, 64, 3, generator=torch.Generator().manual_seed(20)) * 2 - 1
+    lq = lq.to(dev)
+    gen = lambda: torch.Generator(device=dev).manual_seed(21)
+    result = {}
+    for tag, opts in (("20a1", dict(resblock_updown=True, patch_norm=True,
+                                    use_scale_shift_norm=False)),
+                      ("20a2", dict(conv_resample=False))):
+        cfg = copy.deepcopy(base)
+        cfg["model"].update(opts)
+        pipe = ResShiftPipeline(cfg, dtype=torch.bfloat16, device=dev)
+        pipe.init_params(seed=0)  # phase 3's kind of random weights
+        pipe.load_state_dicts(**with_biases(pipe))
+        latents, decode = [], pipe._decode
+        pipe._decode = lambda vqm, z: latents.append(z.float().clone()) or decode(vqm, z)
+        reset()
+        t1 = time.perf_counter()
+        out = pipe.sample(lq, gen())
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t1) * 1e3
+        launches[tag] = read_launches(all_kernels, sb)
+        want = expected_launches(cfg, 64, 64)
+        print(f"  {tag} {opts}: launches in one sample call {launches[tag]} (derived: {want})",
+              flush=True)
+        if launches[tag] != want or not all(launches[tag][k] for k in "ABCD"):
+            raise AssertionError(f"{tag}: launch counts {launches[tag]}, want {want}")
+        if out.shape != (batch, 256, 256, 3) or not torch.isfinite(out).all():
+            raise AssertionError(f"{tag}: bad output {tuple(out.shape)}")
+        times = []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            pipe.sample(lq, gen())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        # the same model pinned plain: clones sharing every parameter
+        pipe.unet, pipe.vq = pipe.unet.clone(use_pallas=False), pipe.vq.clone(use_pallas=False)
+        pipe._compute = None
+        reset()
+        plain = pipe.sample(lq, gen())
+        torch.cuda.synchronize()
+        if any(read_launches(all_kernels, sb).values()):
+            raise AssertionError(f"{tag}: the clone pinned use_pallas=False launched a kernel")
+        psnr, psnr_latent = db(out, plain, 2.0), db(latents[0], latents[-1])
+        ms = statistics.median(times)
+        print(f"  {tag}: image PSNR against the plain clone {psnr:.2f} dB (bar 35), final "
+              f"latent {psnr_latent:.2f} dB (not gated); "
+              f"{ms:.1f} ms per call (median of {[round(t, 1) for t in times]}; first "
+              f"{first:.1f}), {batch * 256 * 256 / (ms / 1e3) / 1e6:.4f} Mpx/s on {card}",
+              flush=True)
+        if not psnr >= 35.0:
+            raise AssertionError(f"{tag}: image PSNR {psnr:.2f} dB below 35")
+        result[tag] = {"psnr_db": psnr, "latent_psnr_db": psnr_latent, "ms": ms,
+                       "first_ms": first}
+        del pipe, out, plain
+    return result
+
+
+def autoencoder_kl_phase(dev, card: str, all_kernels: dict, read_launches, reset,
+                         launches: dict, dd: dict = KL_F16, embed_dim: int = 16,
+                         batch: int = 4, side: int = 256) -> dict:
+    """Phase 20(b): AutoencoderKL at KL-f16's first-stage shape (see the
+    module docstring).  Returns its figures."""
+    import torch
+
+    from resshift_tpu_torch.models import AutoencoderKL
+    from resshift_tpu_torch.ops import swin_block as sb
+
+    ae = AutoencoderKL(dd, embed_dim, dtype=torch.bfloat16)
+    seeded_weights(ae, 23)
+    ae = ae.to(dev).eval()
+    x = (torch.rand(batch, side, side, 3, generator=torch.Generator().manual_seed(24)) * 2
+         - 1).to(dev)
+    n_attn = kl_attention_blocks(dd)
+    with torch.no_grad():
+        reset()
+        t1 = time.perf_counter()
+        z = ae.encode(x)
+        rec = ae.decode(z)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        launches["20b"] = got = read_launches(all_kernels, sb)
+        want = {k: 0 for k in got}
+        want["C"] = n_attn
+        print(f"  20b: encode + decode of {batch} x {side}x{side}: launches {got} (C derived: "
+              f"{n_attn} attention blocks); {ms:.1f} ms (first call) on {card}", flush=True)
+        if got != want:
+            raise AssertionError(f"20b: launch counts {got}, want {want}")
+        t1 = time.perf_counter()
+        ae.decode(ae.encode(x))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        reset()
+        pinned = ae.clone(use_pallas=True).decode(z)
+        launches["20b pinned decode"] = got = read_launches(all_kernels, sb)
+        if not (got["F stats"] == 1 and got["F"] + got["F tc"] == 1):
+            raise AssertionError(f"20b: the decoder pinned True launched F {got}")
+        plain_ae = ae.clone(use_pallas=False)
+        reset()
+        rec_plain = plain_ae.decode(plain_ae.encode(x))
+        if any(read_launches(all_kernels, sb).values()):
+            raise AssertionError("20b: the clone pinned use_pallas=False launched a kernel")
+        sample = ae.encode(x, generator=torch.Generator(device=dev).manual_seed(25))
+    psnr, psnr_pin = db(rec, rec_plain, 2.0), db(pinned, rec_plain, 2.0)
+    moved = (sample - z).abs().max().item()
+    print(f"  20b: latent {tuple(z.shape)}; reconstruction PSNR against the plain clone "
+          f"{psnr:.2f} dB, with F at the tail {psnr_pin:.2f} dB (bar 35); a seeded posterior "
+          f"sample moves the latent by up to {moved:.4f}; {ms:.1f} ms an encode + decode on "
+          f"{card}", flush=True)
+    if not (psnr >= 35.0 and psnr_pin >= 35.0 and torch.isfinite(rec).all() and moved > 0):
+        raise AssertionError(f"20b: PSNR {psnr:.2f} / {psnr_pin:.2f} dB, sample moved {moved}")
+    return {"ms": ms, "psnr_db": psnr, "psnr_pinned_db": psnr_pin, "attn_blocks": n_attn}
+
+
+def variants_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict,
+                   widths: dict = VARIANT_WIDTHS, batch: int = BSZ, side: int = 64) -> dict:
+    """Phase 20(c): UNetModel and UNetModelConv forward and backward (see the
+    module docstring).  Returns their figures."""
+    import torch
+
+    from resshift_tpu_torch.models import UNetModel, UNetModelConv
+    from resshift_tpu_torch.ops import swin_block as sb
+
+    g = torch.Generator().manual_seed(26)
+    x = torch.randn(batch, side, side, 3, generator=g).to(dev)
+    lq = (torch.rand(batch, 2 * side, 2 * side, 3, generator=g) * 2 - 1).to(dev)
+    t = torch.randint(0, 15, (batch,), generator=g).to(dev)
+    result = {}
+    for name, build in (("UNetModel", lambda dt: UNetModel(
+            image_size=side, in_channels=15, cond_lq=True, dtype=dt, **widths)),
+                        ("UNetModelConv", lambda dt: UNetModelConv(
+            in_channels=15, cond_lq=True, dtype=dt, **widths))):
+        outs = {}
+        for dt in (torch.float32, torch.bfloat16):
+            model = build(dt)
+            seeded_weights(model, 27)
+            model = model.to(dev).train()
+            reset()
+            (model(x, t, lq=lq).float() ** 2).mean().backward()  # warm-up
+            model.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            out = model(x, t, lq=lq)
+            (out.float() ** 2).mean().backward()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            got = read_launches(all_kernels, sb)
+            launches[f"20c {name} {dt}".replace("torch.", "")] = got
+            if any(got.values()):
+                raise AssertionError(f"20c: {name} launched a kernel: {got}")
+            grads = [p.grad for p in model.parameters()]
+            if any(gr is None or not torch.isfinite(gr).all() for gr in grads):
+                raise AssertionError(f"20c: {name} {dt}: a parameter without a finite gradient")
+            outs[dt] = out.detach().float()
+            tag = "bf16" if dt == torch.bfloat16 else "f32"
+            print(f"  20c: {name} {tag}, batch {batch} of {side}x{side} (LQ {2 * side}x"
+                  f"{2 * side}, pixel-unshuffled): forward + backward {ms:.1f} ms, peak "
+                  f"max_memory_allocated {peak:.2f} GiB, no kernel launched, on {card}",
+                  flush=True)
+            result[f"{name} {tag}"] = {"ms": ms, "peak_gib": peak}
+            del model, out, grads
+        psnr = db(outs[torch.bfloat16], outs[torch.float32])
+        print(f"  20c: {name} bf16 output against f32: {psnr:.2f} dB (bar 35)", flush=True)
+        if not psnr >= 35.0:
+            raise AssertionError(f"20c: {name} bf16 against f32 {psnr:.2f} dB below 35")
+        result[f"{name} psnr_db"] = psnr
+    return result
+
+
+def pixel_train_config(train_pack: tuple[str, str], val: tuple[str, str],
+                       model: dict = PIXEL_MODEL, batch: int = 16) -> dict:
+    """tools/train_proof.py's pixel-space settings (`autoencoder: null`, the
+    role of IdentityFirstStage): training on packed lq / gt files, validation
+    on folders."""
+    return dict(
+        task="train_proof", sf=1, model=dict(model),
+        diffusion=dict(schedule_name="exponential", steps=4, min_noise_level=0.2,
+                       etas_end=0.99, kappa=1.0, power=0.3, predict_type="xstart",
+                       timestep_respacing=None, normalize_input=True, latent_flag=False,
+                       scale_factor=1.0, sf=1),
+        autoencoder=None,
+        inference=dict(chop_size=64, chop_stride=48, padding_offset=64),
+        train=dict(lr=2e-4, lr_min=2e-5, lr_schedule="cosin", warmup_iterations=50,
+                   iterations=3, batch=batch, microbatch=None, ema_rate=0.999,
+                   weight_decay=0.0, save_freq=1000, log_freq=[1, 1000], val_freq=3,
+                   val_max_images=None),
+        data=dict(train=dict(type="base", params=dict(pack_path=train_pack[0],
+                                                      extra_pack_path=train_pack[1])),
+                  val=dict(type="base", params=dict(dir_path=val[0], extra_dir_path=val[1]))))
+
+
+def pixel_train_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict,
+                      model: dict = PIXEL_MODEL, n_pairs: int = 32, batch: int = 16) -> dict:
+    """Phase 20(d): pixel-space training from packed files (see the module
+    docstring).  Returns its figures."""
+    import numpy as np
+    import torch
+
+    from resshift_tpu_torch.data.packfile import PackReader, native_available
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.ops.resize import resize_np
+    from resshift_tpu_torch.train_loop import Trainer
+    from resshift_tpu_torch.utils.image_io import imwrite
+
+    if not native_available():
+        raise AssertionError("20d: the native packfile reader does not build or load")
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    rng = np.random.default_rng(28)
+    for sub in ("lq", "gt", "val_lq", "val_gt"):
+        (root / sub).mkdir()
+    for i in range(n_pairs + 2):
+        gt = np.clip(resize_np(rng.uniform(0, 1, (8, 8, 3)), (64, 64), "bilinear")
+                     + rng.normal(0, 0.03, (64, 64, 3)), 0, 1)
+        lq = np.clip(gt + rng.normal(0, 0.1, gt.shape), 0, 1)  # a noisy copy: sf 1
+        val = "val_" if i >= n_pairs else ""
+        imwrite(gt, root / f"{val}gt" / f"{i:03d}.png")
+        imwrite(lq, root / f"{val}lq" / f"{i:03d}.png")
+    t1 = time.perf_counter()
+    for sub in ("lq", "gt"):
+        proc = subprocess.run([sys.executable, "-m", "resshift_tpu_torch.scripts", "pack",
+                               "--source", str(root / sub), "--out", str(root / f"{sub}.pack")],
+                              cwd=ROOT, capture_output=True, text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"scripts pack exited {proc.returncode}: {proc.stderr[-2000:]}")
+    with PackReader(root / "gt.pack") as r:
+        if not r.native or len(r) != n_pairs:
+            raise AssertionError(f"20d: the pack holds {len(r)} images (native {r.native})")
+    print(f"  20d: {n_pairs} synthetic 64x64 pairs packed by `scripts pack` in "
+          f"{time.perf_counter() - t1:.1f} s; the native reader in use", flush=True)
+    cfg = pixel_train_config((str(root / "lq.pack"), str(root / "gt.pack")),
+                             (str(root / "val_lq"), str(root / "val_gt")), model, batch)
+    calls: dict[str, list] = {}
+    read = lambda: read_launches(all_kernels, sb)
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, save_dir=str(root / "run"), dtype=torch.bfloat16, seed=0, device=dev)
+    if not tr.loader.ds.client.pack.native:
+        raise AssertionError("20d: the training data is not read by the native reader")
+    tr.train_step = counting(calls, tr.train_step, "steps", read, reset)
+    tr.validate = counting(calls, tr.validate, "validate", read, reset)
+    tr.train(stop_iter=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log = [json.loads(ln) for ln in (root / "run" / "train_log.jsonl").read_text().splitlines()]
+    steps = [m for m in log if "loss" in m]
+    if [m["iter"] for m in steps] != [1, 2, 3]:
+        raise AssertionError(f"20d: logged iterations {[m['iter'] for m in steps]}")
+    for m in steps:
+        print(f"  20d: iteration {m['iter']}: loss {m['loss']:.5f}, grad_norm "
+              f"{m['grad_norm']:.4f}, loader {m['loader_ms']:.1f} ms, to the card "
+              f"{m['degrade_ms']:.1f} ms, step {m['step_ms']:.1f} ms", flush=True)
+        if not (math.isfinite(m["loss"]) and m["loss"] > 0 and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"20d: iteration {m['iter']}: loss or grad_norm not finite")
+    if any(any(got.values()) for got in calls["steps"]):
+        raise AssertionError(f"20d: a step launched a kernel: {calls['steps']}")
+    want = validation_launches(cfg, tr.pipe.sched.num_timesteps)
+    want.update({"C": 0, "D": 0, "D finalize": 0})  # no first stage: no VQGAN kernel
+    (got,) = calls["validate"]
+    print(f"  20d: launches in validation {got} (derived: {want})", flush=True)
+    if got != want or not (got["A"] and got["B"]):
+        raise AssertionError(f"20d: validation launches {got}, want {want}")
+    launches["20d step"], launches["20d validate"] = calls["steps"][0], got
+    times = {k: statistics.median(t[k] for t in tr.timings[1:3])
+             for k in ("loader_ms", "degrade_ms", "step_ms")}
+    it_ms = sum(times.values())
+    print(f"  20d: ms per iteration (median of iterations 2-3): {it_ms:.1f} = loader "
+          f"{times['loader_ms']:.1f} + to the card {times['degrade_ms']:.1f} + step "
+          f"{times['step_ms']:.1f}; {tr.batch / (it_ms / 1e3):.2f} images/s; peak "
+          f"max_memory_allocated {peak:.2f} GiB; on {card}", flush=True)
+    tr.loader.close()
+    del tr
+    tmp.cleanup()
+    return {"ms_per_iteration": it_ms, **times, "peak_gib": peak}
+
+
 def run_tools(root: Path) -> dict:
     """Phase 12: each tool of TOOL_RUNS in its own process on the card, at its
     full width with two timed calls; each must exit 0, launch its kernels
@@ -1864,15 +2237,6 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 3
     print("phase 3: realsr_v1, full width, bf16, 15 steps, batch 8 of 64x64", flush=True)
-
-    def with_biases(p) -> dict:
-        """The state_dicts of pipeline `p` with every all-zero tensor (biases,
-        the zero-initialised output convs) redrawn, so that every branch
-        reaches the output."""
-        gw = torch.Generator().manual_seed(1)
-        return {name: {k: v if v.any() else (0.02 * torch.randn(v.shape, generator=gw)).to(dev)
-                       for k, v in mod.state_dict().items()}
-                for name, mod in (("unet", p.unet), ("vqgan", p.vq))}
 
     pipe = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16)
     pipe.init_params(seed=0)
@@ -2409,11 +2773,6 @@ def main() -> int:
         finally:
             pipe1._decode = orig
 
-    def db(x, y, peak=None):
-        x, y = x.double(), y.double()
-        peak = y.abs().max().item() if peak is None else peak
-        return 10 * math.log10(peak ** 2 / max(((x - y) ** 2).mean().item(), 1e-30))
-
     gen = lambda: torch.Generator(device=dev).manual_seed(19)
     ref, (z_ref,), ref_ms = capture(lambda: pipe1.sample(lq, gen()))
     for tag, sweeps in (("16 T", steps), ("16 T//3", steps // 3)):
@@ -2473,6 +2832,15 @@ def main() -> int:
           "random weights, bf16 compute on f32 masters; scripts celeba-faceir; the bsrgan "
           "loaders; the JPEG round trip", flush=True)
     faceir_phase(dev, card, all_kernels, read_launches, reset, launches)
+
+    # ---------------------------------------------------------------- 20
+    print("phase 20: the architecture options and the trainable variants: (a) realsr_v1 "
+          "under the UNet options, (b) AutoencoderKL at KL-f16's shape, (c) UNetModel and "
+          "UNetModelConv, (d) pixel-space training from packed files", flush=True)
+    unet_options_phase(dev, card, all_kernels, read_launches, reset, launches)
+    autoencoder_kl_phase(dev, card, all_kernels, read_launches, reset, launches)
+    variants_phase(dev, card, all_kernels, read_launches, reset, launches)
+    pixel_train_phase(dev, card, all_kernels, read_launches, reset, launches)
 
     rows = kernel_rows(launches, errs, timed)
     backward = {"A": "autograd Function: the plain version's gradient, recomputed",

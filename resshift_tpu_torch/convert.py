@@ -66,6 +66,8 @@ def _resblock(flat, sd, t, f):
 
 def _basiclayer(flat, sd, t, f, depth):
     _emit(flat, sd, f"{t}.patch_embed.proj", f + ("patch_embed_proj",), "conv")
+    if f + ("patch_embed_norm", "scale") in flat:  # patch_norm
+        _emit(flat, sd, f"{t}.patch_embed.norm", f + ("patch_embed_norm",), "gn")
     for i in range(depth):
         b, fb = f"{t}.blocks.{i}", f + (f"block{i}",)
         _emit(flat, sd, f"{b}.norm1", fb + ("norm1",), "gn")
@@ -77,6 +79,19 @@ def _basiclayer(flat, sd, t, f, depth):
         _emit(flat, sd, f"{b}.mlp.fc1", fb + ("mlp_fc1",), "dense1x1")
         _emit(flat, sd, f"{b}.mlp.fc2", fb + ("mlp_fc2",), "dense1x1")
     _emit(flat, sd, f"{t}.patch_unembed.proj", f + ("patch_unembed_proj",), "conv")
+    if f + ("patch_unembed_norm", "scale") in flat:
+        _emit(flat, sd, f"{t}.patch_unembed.norm", f + ("patch_unembed_norm",), "gn")
+
+
+def _resample(flat, sd, t, f, up: bool, resblock_updown: bool, conv_resample: bool,
+              res=_resblock):
+    """A Downsample (`op`) or Upsample (`conv`), none without `conv_resample`,
+    or the ResBlock that takes its place with `resblock_updown`."""
+    if resblock_updown:
+        res(flat, sd, t, f)
+    elif conv_resample:
+        conv = "conv" if up else "op"
+        _emit(flat, sd, f"{t}.{conv}", f + (conv,), "conv")
 
 
 def _walk_unet_swin(flat, sd, *, image_size: int = 64,
@@ -84,6 +99,7 @@ def _walk_unet_swin(flat, sd, *, image_size: int = 64,
                     num_res_blocks: Iterable[int] | int = (2, 2, 2, 2),
                     attention_resolutions: Iterable[int] = (64, 32, 16, 8),
                     swin_depth: int = 2, cond_lq: bool = True, lq_size: int | None = None,
+                    resblock_updown: bool = False, conv_resample: bool = True,
                     **_ignored) -> None:
     channel_mult = list(channel_mult)
     nrb = ([num_res_blocks] * len(channel_mult) if isinstance(num_res_blocks, int)
@@ -105,7 +121,8 @@ def _walk_unet_swin(flat, sd, *, image_size: int = 64,
                             swin_depth)
             n += 1
         if level != len(channel_mult) - 1:
-            _emit(flat, sd, f"input_blocks.{n}.0.op", (f"in_l{level}_down", "op"), "conv")
+            _resample(flat, sd, f"input_blocks.{n}.0", (f"in_l{level}_down",), False,
+                      resblock_updown, conv_resample)
             n += 1
             ds //= 2
     _resblock(flat, sd, "middle_block.0", ("mid_res0",))
@@ -121,12 +138,108 @@ def _walk_unet_swin(flat, sd, *, image_size: int = 64,
                             swin_depth)
                 j += 1
             if level and i == nrb[level]:
-                _emit(flat, sd, f"output_blocks.{n}.{j}.conv", (f"out_l{level}_up", "conv"),
-                      "conv")
+                _resample(flat, sd, f"output_blocks.{n}.{j}", (f"out_l{level}_up",), True,
+                          resblock_updown, conv_resample)
                 ds *= 2
             n += 1
     _emit(flat, sd, "out.0", ("out_norm",), "gn")
     _emit(flat, sd, "out.2", ("out_conv",), "conv")
+
+
+def _global_attn(flat, sd, t, f):
+    """GlobalAttentionBlock: GN and two 1-D 1x1 convs, (out, in, 1) <-> Dense (in, out)."""
+    _emit(flat, sd, f"{t}.norm", f + ("norm",), "gn")
+    for name in ("qkv", "proj_out"):
+        sd[f"{t}.{name}.weight"] = _np(flat[f + (name, "kernel")]).T[:, :, None]
+        sd[f"{t}.{name}.bias"] = _np(flat[f + (name, "bias")])
+
+
+def _walk_unet_plain(flat, sd, *, image_size: int = 64,
+                     channel_mult: Iterable[int] = (1, 2, 4, 8),
+                     num_res_blocks: Iterable[int] | int = 2,
+                     attention_resolutions: Iterable[int] = (32, 16, 8),
+                     num_classes: int | None = None, resblock_updown: bool = False,
+                     conv_resample: bool = True, **_ignored) -> None:
+    channel_mult = list(channel_mult)
+    nrb = ([num_res_blocks] * len(channel_mult) if isinstance(num_res_blocks, int)
+           else list(num_res_blocks))
+    attn = set(attention_resolutions)
+    _emit(flat, sd, "time_embed.0", ("time_embed_0",), "linear")
+    _emit(flat, sd, "time_embed.2", ("time_embed_2",), "linear")
+    if num_classes is not None:
+        _emit(flat, sd, "label_emb.weight", ("label_emb", "embedding"), "raw")
+    _emit(flat, sd, "input_blocks.0.0", ("conv_in",), "conv")
+    n, ds = 1, image_size
+    for level in range(len(channel_mult)):
+        for jj in range(nrb[level]):
+            _resblock(flat, sd, f"input_blocks.{n}.0", (f"in_l{level}_b{jj}_res",))
+            if ds in attn:
+                _global_attn(flat, sd, f"input_blocks.{n}.1", (f"in_l{level}_b{jj}_attn",))
+            n += 1
+        if level != len(channel_mult) - 1:
+            _resample(flat, sd, f"input_blocks.{n}.0", (f"in_l{level}_down",), False,
+                      resblock_updown, conv_resample)
+            n += 1
+            ds //= 2
+    _resblock(flat, sd, "middle_block.0", ("mid_res0",))
+    _global_attn(flat, sd, "middle_block.1", ("mid_attn",))
+    _resblock(flat, sd, "middle_block.2", ("mid_res1",))
+    n = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(nrb[level] + 1):
+            _resblock(flat, sd, f"output_blocks.{n}.0", (f"out_l{level}_b{i}_res",))
+            j = 1
+            if ds in attn:
+                _global_attn(flat, sd, f"output_blocks.{n}.{j}", (f"out_l{level}_b{i}_attn",))
+                j += 1
+            if level and i == nrb[level]:
+                _resample(flat, sd, f"output_blocks.{n}.{j}", (f"out_l{level}_up",), True,
+                          resblock_updown, conv_resample)
+                ds *= 2
+            n += 1
+    _emit(flat, sd, "out.0", ("out_norm",), "gn")
+    _emit(flat, sd, "out.2", ("out_conv",), "conv")
+
+
+def _resblock_conv(flat, sd, t, f):
+    """ResBlockConv under the port's own names (the JAX package has no
+    mapping for UNetModelConv)."""
+    _emit(flat, sd, f"{t}.in_layers.1", f + ("in_conv",), "conv")
+    _emit(flat, sd, f"{t}.emb_layers.1", f + ("emb_proj",), "linear")
+    _emit(flat, sd, f"{t}.out_layers.2", f + ("out_conv",), "conv")
+    if f + ("skip_connection", "kernel") in flat:
+        _emit(flat, sd, f"{t}.skip_connection", f + ("skip_connection",), "conv")
+
+
+def _walk_unet_conv(flat, sd, *, channel_mult: Iterable[int] = (1, 2, 4, 8),
+                    num_res_blocks: Iterable[int] | int = 2, resblock_updown: bool = False,
+                    conv_resample: bool = True, **_ignored) -> None:
+    channel_mult = list(channel_mult)
+    nrb = ([num_res_blocks] * len(channel_mult) if isinstance(num_res_blocks, int)
+           else list(num_res_blocks))
+    _emit(flat, sd, "time_embed.0", ("time_embed_0",), "linear")
+    _emit(flat, sd, "time_embed.2", ("time_embed_2",), "linear")
+    _emit(flat, sd, "input_blocks.0.0", ("conv_in",), "conv")
+    n = 1
+    for level in range(len(channel_mult)):
+        for jj in range(nrb[level]):
+            _resblock_conv(flat, sd, f"input_blocks.{n}.0", (f"in_l{level}_b{jj}_res",))
+            n += 1
+        if level != len(channel_mult) - 1:
+            _resample(flat, sd, f"input_blocks.{n}.0", (f"in_l{level}_down",), False,
+                      resblock_updown, conv_resample, _resblock_conv)
+            n += 1
+    _resblock_conv(flat, sd, "middle_block.0", ("mid_res0",))
+    _resblock_conv(flat, sd, "middle_block.1", ("mid_res1",))
+    n = 0
+    for level in reversed(range(len(channel_mult))):
+        for i in range(nrb[level] + 1):
+            _resblock_conv(flat, sd, f"output_blocks.{n}.0", (f"out_l{level}_b{i}_res",))
+            if level and i == nrb[level]:
+                _resample(flat, sd, f"output_blocks.{n}.1", (f"out_l{level}_up",), True,
+                          resblock_updown, conv_resample, _resblock_conv)
+            n += 1
+    _emit(flat, sd, "out.1", ("out_conv",), "conv")
 
 
 def _ae_resnet(flat, sd, t, f):
@@ -145,18 +258,26 @@ def _ae_attn(flat, sd, t, f):
 
 
 def _walk_vqgan(flat, sd, *, ch_mult: Iterable[int] = (1, 2, 4),
-                num_res_blocks: Iterable[int] | int = 2, **_ignored) -> None:
+                num_res_blocks: Iterable[int] | int = 2, attn_resolutions: Iterable[int] = (),
+                resolution: int = 256, resamp_with_conv: bool = True, quantize: bool = True,
+                **_ignored) -> None:
     ch_mult = list(ch_mult)
     nrb = ([num_res_blocks] * len(ch_mult) if isinstance(num_res_blocks, int)
            else list(num_res_blocks))
+    attn = set(attn_resolutions or ())
     enc = ("encoder",)
     _emit(flat, sd, "encoder.conv_in", enc + ("conv_in",), "conv")
+    curr = resolution
     for i in range(len(ch_mult)):
         for j in range(nrb[i]):
             _ae_resnet(flat, sd, f"encoder.down.{i}.block.{j}", enc + (f"down{i}_block{j}",))
+            if curr in attn:
+                _ae_attn(flat, sd, f"encoder.down.{i}.attn.{j}", enc + (f"down{i}_attn{j}",))
         if i != len(ch_mult) - 1:
-            _emit(flat, sd, f"encoder.down.{i}.downsample.conv",
-                  enc + (f"down{i}_downsample", "conv"), "conv")
+            if resamp_with_conv:
+                _emit(flat, sd, f"encoder.down.{i}.downsample.conv",
+                      enc + (f"down{i}_downsample", "conv"), "conv")
+            curr //= 2
     _ae_resnet(flat, sd, "encoder.mid.block_1", enc + ("mid_block1",))
     _ae_attn(flat, sd, "encoder.mid.attn_1", enc + ("mid_attn1",))
     _ae_resnet(flat, sd, "encoder.mid.block_2", enc + ("mid_block2",))
@@ -167,15 +288,21 @@ def _walk_vqgan(flat, sd, *, ch_mult: Iterable[int] = (1, 2, 4),
     _ae_resnet(flat, sd, "decoder.mid.block_1", dec + ("mid_block1",))
     _ae_attn(flat, sd, "decoder.mid.attn_1", dec + ("mid_attn1",))
     _ae_resnet(flat, sd, "decoder.mid.block_2", dec + ("mid_block2",))
+    curr = resolution // 2 ** (len(ch_mult) - 1)
     for i in reversed(range(len(ch_mult))):
         for j in range(nrb[i] + 1):
             _ae_resnet(flat, sd, f"decoder.up.{i}.block.{j}", dec + (f"up{i}_block{j}",))
+            if curr in attn:
+                _ae_attn(flat, sd, f"decoder.up.{i}.attn.{j}", dec + (f"up{i}_attn{j}",))
         if i != 0:
-            _emit(flat, sd, f"decoder.up.{i}.upsample.conv", dec + (f"up{i}_upsample", "conv"),
-                  "conv")
+            if resamp_with_conv:
+                _emit(flat, sd, f"decoder.up.{i}.upsample.conv",
+                      dec + (f"up{i}_upsample", "conv"), "conv")
+            curr *= 2
     _emit(flat, sd, "decoder.norm_out", dec + ("norm_out",), "gn")
     _emit(flat, sd, "decoder.conv_out", dec + ("conv_out",), "conv")
-    _emit(flat, sd, "quantize.embedding.weight", ("quantize", "embedding"), "raw")
+    if quantize:  # the VQModel's codebook; AutoencoderKL has none
+        _emit(flat, sd, "quantize.embedding.weight", ("quantize", "embedding"), "raw")
     _emit(flat, sd, "quant_conv", ("quant_conv",), "conv")
     _emit(flat, sd, "post_quant_conv", ("post_quant_conv",), "conv")
 
@@ -184,23 +311,36 @@ def from_flax(params: Mapping, which: str, **cfg) -> dict[str, np.ndarray]:
     """A JAX parameter tree -> reference-layout state_dict (numpy float32).
 
     which='unet' takes the UNetModelSwin hyperparameters (image_size,
-    channel_mult, num_res_blocks, attention_resolutions, swin_depth, and
-    cond_lq with lq_size for the LQ feature pyramid, which is mapped when
-    lq_size is given and differs from image_size; others are ignored);
-    which='vqgan' takes ch_mult and num_res_blocks (f4 and f8);
-    which='window_attention' maps a standalone WindowAttention."""
+    channel_mult, num_res_blocks, attention_resolutions, swin_depth,
+    resblock_updown, conv_resample, and cond_lq with lq_size for the LQ
+    feature pyramid, which is mapped when lq_size is given and differs from
+    image_size; the patch norms are mapped where the tree has them; others
+    are ignored); which='unet_plain' the UNetModel's (image_size,
+    channel_mult, num_res_blocks, attention_resolutions, num_classes,
+    resblock_updown, conv_resample), key for key the JAX package's
+    `export_unet_plain`; which='unet_conv' the UNetModelConv's
+    (channel_mult, num_res_blocks, resblock_updown, conv_resample), to the
+    port's own names; which='vqgan' and 'autoencoder_kl' the ddconfig's
+    ch_mult, num_res_blocks, attn_resolutions, resolution and
+    resamp_with_conv (f4, f8, KL); which='window_attention' maps a
+    standalone WindowAttention."""
     flat = _flatten(params)
     sd: dict[str, np.ndarray] = {}
     if which == "unet":
         _walk_unet_swin(flat, sd, **cfg)
-    elif which == "vqgan":
-        _walk_vqgan(flat, sd, **cfg)
+    elif which == "unet_plain":
+        _walk_unet_plain(flat, sd, **cfg)
+    elif which == "unet_conv":
+        _walk_unet_conv(flat, sd, **cfg)
+    elif which in ("vqgan", "autoencoder_kl"):
+        _walk_vqgan(flat, sd, quantize=which == "vqgan", **cfg)
     elif which == "window_attention":
         _emit(flat, sd, "relative_position_bias_table", ("relative_position_bias_table",), "raw")
         _emit(flat, sd, "qkv", ("qkv",), "linear")
         _emit(flat, sd, "proj", ("proj",), "linear")
     else:
-        raise ValueError(f"which must be 'unet', 'vqgan' or 'window_attention', not {which!r}")
+        raise ValueError(f"which must be 'unet', 'unet_plain', 'unet_conv', 'vqgan', "
+                         f"'autoencoder_kl' or 'window_attention', not {which!r}")
     return sd
 
 

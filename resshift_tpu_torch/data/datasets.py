@@ -1,10 +1,12 @@
 """Host-side datasets and the loader (the port's own copy of the JAX
-package's `data/datasets.py`, without its packed-file and memcached
-backends).
+package's `data/datasets.py`).
 
   * `BaseData` (realsr's `val` type): images from a folder or a txt
-    listing, with the paired GT from `extra_dir_path`;
-  * `RealESRGANData`: HQ crops and each sample's three blur kernels, drawn
+    listing, with the paired GT from `extra_dir_path`, or from a packed
+    file (`pack_path`, its keys sorted; the GT under the same key in
+    `extra_pack_path`);
+  * `RealESRGANData`: HQ crops (from files or a packed file) and each
+    sample's three blur kernels, drawn
     from the dataset's `np.random.Generator` in the JAX package's order,
     so that the same seed and files give the same items bit for bit;
   * `BicubicData` (bicsr): GT crops and their MATLAB-bicubic LQ, flipped
@@ -21,8 +23,10 @@ backends).
     shuffling from (seed, epoch), `skip_batches` to resume, `num_workers`
     threads each with a reseeded deep copy of the dataset).
 Images are NHWC float32, normalised to [-1, 1] (mean = std = 0.5) except
-`RealESRGANData`'s GT, which the degrader takes in [0, 1].  Packed files
-and memcached raise NotImplementedError: ROADMAP.md section 1 lists them.
+`RealESRGANData`'s GT, which the degrader takes in [0, 1].  With
+`io_backend: {type: memcached, server: host:port}` `BaseData` and
+`RealESRGANData` read their files through a memcached daemon
+(`file_client.py`).
 """
 
 from __future__ import annotations
@@ -41,13 +45,12 @@ from ..ops.resize import imresize_matlab, resize_np
 from ..utils.image_io import imread, list_images
 from . import degradations as deg
 from .faces import ffhq_degrade
+from .file_client import FileClient
 from .masks import MixedMaskGenerator
 
 __all__ = ["create_dataset", "DataLoader", "BaseData", "RealESRGANData", "BicubicData",
            "InpaintingData", "InpaintingValData", "GFPGANData", "BSRGANData", "SIDDValData",
            "DegradedDataFromSource"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md section 1: packed files and memcached)"
 
 
 def _collect_paths(dir_path=None, dir_paths=None, txt_path=None, txt_file_path=None,
@@ -90,21 +93,34 @@ def _augment(rng, im, hflip=True, rot=True):
     return np.ascontiguousarray(im)
 
 
-def _no_pack(pack_path, io_backend):
-    if pack_path or (io_backend or {}).get("type") == "memcached":
-        raise NotImplementedError(f"pack_path / memcached {_NOT_PORTED}")
+def _memcached_client(io_backend) -> FileClient | None:
+    """The memcached-fronted client that `io_backend` asks for, else None."""
+    if (io_backend or {}).get("type") != "memcached":
+        return None
+    return FileClient("memcached", server=io_backend.get("server", "127.0.0.1:11211"))
 
 
 class BaseData:
     """Images from a folder or txt listing; `extra_dir_path` gives the GT
-    of the same file name."""
+    of the same file name.  With `pack_path`, the items are that packed
+    file's keys (a seeded draw of `length` of them) and `extra_pack_path`
+    holds the GT under the same keys."""
 
     def __init__(self, dir_path=None, txt_path=None, mean=0.5, std=0.5, extra_dir_path=None,
                  length=None, need_path=False, im_exts=None, recursive=False, seed=0,
                  pack_path=None, extra_pack_path=None, io_backend=None, **_):
-        _no_pack(pack_path or extra_pack_path, io_backend)
-        self.paths = _collect_paths(dir_path=dir_path, txt_path=txt_path, recursive=recursive,
-                                    length=length, rng=np.random.default_rng(seed))
+        if pack_path:
+            self.client = FileClient("pack", pack_path)
+            self.paths = sorted(self.client.keys())
+            if length is not None:
+                rng = np.random.default_rng(seed)
+                self.paths = [self.paths[i] for i in rng.permutation(len(self.paths))[:length]]
+            self.extra_client = FileClient("pack", extra_pack_path) if extra_pack_path else None
+        else:
+            self.client, self.extra_client = _memcached_client(io_backend), None
+            self.paths = _collect_paths(dir_path=dir_path, txt_path=txt_path,
+                                        recursive=recursive, length=length,
+                                        rng=np.random.default_rng(seed))
         self.mean, self.std = mean, std
         self.extra_dir_path = extra_dir_path
         self.need_path = need_path
@@ -114,9 +130,12 @@ class BaseData:
 
     def __getitem__(self, i):
         p = self.paths[i]
-        im = _normalize(imread(p), self.mean, self.std)
+        im = _normalize(imread(p) if self.client is None else self.client.imread(p), self.mean,
+                        self.std)
         out = {"lq": im, "image": im}
-        if self.extra_dir_path is not None:
+        if self.extra_client is not None:
+            out["gt"] = _normalize(self.extra_client.imread(p), self.mean, self.std)
+        elif self.extra_dir_path is not None:
             out["gt"] = _normalize(imread(Path(self.extra_dir_path) / Path(p).name),
                                    self.mean, self.std)
         if self.need_path:
@@ -135,10 +154,17 @@ class RealESRGANData:
                  gt_size=256, crop_pad_size=300, use_hflip=True, use_rot=False,
                  rescale_gt=True, length=None, mode="training", seed=0, pack_path=None,
                  io_backend=None, **_):
-        _no_pack(pack_path, io_backend)
         self.rng = np.random.default_rng(seed)
-        self.paths = _collect_paths(dir_paths=dir_paths, txt_file_path=txt_file_path,
-                                    length=length, rng=self.rng)
+        if pack_path:
+            self.client = FileClient("pack", pack_path)
+            self.paths = sorted(self.client.keys())
+            if length is not None:
+                self.paths = [self.paths[i]
+                              for i in self.rng.permutation(len(self.paths))[:length]]
+        else:
+            self.client = _memcached_client(io_backend)
+            self.paths = _collect_paths(dir_paths=dir_paths, txt_file_path=txt_file_path,
+                                        length=length, rng=self.rng)
         d = ["iso", "aniso", "generalized_iso", "generalized_aniso", "plateau_iso",
              "plateau_aniso"]
         dp = [0.45, 0.25, 0.12, 0.03, 0.12, 0.03]
@@ -159,12 +185,13 @@ class RealESRGANData:
 
     def _load_gt(self, i):
         """The file, or (after a failed read) another drawn at random; three tries."""
+        read = imread if self.client is None else self.client.imread
         for _ in range(3):
             try:
-                return imread(self.paths[i])
-            except (OSError, ValueError):
+                return read(self.paths[i])
+            except (OSError, ValueError, KeyError):
                 i = int(self.rng.integers(len(self.paths)))
-        return imread(self.paths[i])
+        return read(self.paths[i])
 
     def _draw_kernel(self, spec) -> np.ndarray:
         rng = self.rng
@@ -515,6 +542,11 @@ def create_dataset(config: dict):
     params.setdefault("mean", tk.get("mean", 0.5))
     params.setdefault("std", tk.get("std", 0.5))
     params.pop("transform_type", None)
+    # io_backend: memcached reaches the datasets that read through it; 'disk'
+    # (the shipped default) is the plain path
+    io = params.pop("io_backend", None) or {}
+    if isinstance(io, dict) and io.get("type") == "memcached":
+        params["io_backend"] = dict(io)
     return _FACTORY[kind](**params)
 
 

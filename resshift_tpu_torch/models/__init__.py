@@ -1,4 +1,6 @@
 from .unet import UNetModelSwin
-from .vqgan import VQModel
+from .unet_variants import GlobalAttentionBlock, UNetModel, UNetModelConv
+from .vqgan import AutoencoderKL, Decoder, Encoder, IdentityFirstStage, VectorQuantizer, VQModel
 
-__all__ = ["UNetModelSwin", "VQModel"]
+__all__ = ["UNetModelSwin", "UNetModel", "UNetModelConv", "GlobalAttentionBlock", "VQModel",
+           "AutoencoderKL", "IdentityFirstStage", "Encoder", "Decoder", "VectorQuantizer"]

@@ -4,11 +4,16 @@
     input dtype (eps 1e-5; the VQGAN uses 1e-6); `group_norm_fold` gives
     the same normalisation as a per-(image, channel) affine.
   * timestep_embedding puts cos first, then sin.
-  * ResBlock: GN-SiLU-conv3x3, FiLM scale-shift timestep injection, output
-    conv zero-initialised.
-  * Downsample = stride-2 3x3 conv; Upsample = nearest 2x then a 3x3 conv
-    (the plain form; the JAX package's phase-decomposed upsample is a TPU
-    rewrite of the same function).
+  * ResBlock: GN-SiLU-conv3x3, FiLM scale-shift timestep injection (or,
+    with `use_scale_shift_norm=False`, the embedding added before the
+    second GN), output conv zero-initialised; `up` / `down` resample both
+    paths after the first SiLU (nearest 2x / 2x2 average), `use_conv` makes
+    a channel-changing skip a 3x3 conv.
+  * Downsample = stride-2 3x3 conv (2x2 average pool with `use_conv=False`);
+    Upsample = nearest 2x then a 3x3 conv (nearest 2x alone without
+    `use_conv`).  The port keeps the literal nearest-2x + 3x3 composition;
+    the JAX package's phase-decomposed upsample is a TPU rewrite of the
+    same function.
 Conv2d and Linear cast their input and parameters to the module's compute
 dtype at use, as Flax modules with `dtype=` do.
 """
@@ -100,54 +105,78 @@ def upsample_nearest2x(x: torch.Tensor) -> torch.Tensor:
 
 
 class Upsample(nn.Module):
-    """Nearest 2x, then a 3x3 conv."""
+    """Nearest 2x, then a 3x3 conv (`use_conv`), named `conv`."""
 
     def __init__(self, channels: int, out_channels: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_conv: bool = True):
         super().__init__()
-        self.conv = Conv2d(channels, out_channels or channels, 3, padding=1, dtype=dtype)
+        out_ch = out_channels or channels
+        if not use_conv and out_ch != channels:
+            raise ValueError("an Upsample without a conv keeps its channels")
+        self.conv = Conv2d(channels, out_ch, 3, padding=1, dtype=dtype) if use_conv else None
 
     def forward(self, x):
-        return self.conv(upsample_nearest2x(x))
+        x = upsample_nearest2x(x)
+        return x if self.conv is None else self.conv(x)
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv."""
+    """Stride-2 3x3 conv named `op` (`use_conv`), else a 2x2 average pool."""
 
     def __init__(self, channels: int, out_channels: int | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, use_conv: bool = True):
         super().__init__()
-        self.op = Conv2d(channels, out_channels or channels, 3, stride=2, padding=1, dtype=dtype)
+        out_ch = out_channels or channels
+        if not use_conv and out_ch != channels:
+            raise ValueError("a Downsample without a conv keeps its channels")
+        self.op = (Conv2d(channels, out_ch, 3, stride=2, padding=1, dtype=dtype) if use_conv
+                   else None)
 
     def forward(self, x):
-        return self.op(x)
+        return F.avg_pool2d(x, 2) if self.op is None else self.op(x)
 
 
 class ResBlock(nn.Module):
-    """UNet residual block with FiLM (scale-shift) timestep injection.  The Sequential
-    indices follow the reference's parameter names: in_layers.0 (GN),
-    in_layers.2 (conv), emb_layers.1 (linear), out_layers.0 (GN),
-    out_layers.3 (conv, zero-initialised), skip_connection."""
+    """UNet residual block with timestep injection.  The Sequential indices
+    follow the reference's parameter names: in_layers.0 (GN), in_layers.2
+    (conv), emb_layers.1 (linear), out_layers.0 (GN), out_layers.3 (conv,
+    zero-initialised), skip_connection (1x1, or 3x3 with `use_conv`).
+    `up` / `down` resample the normalised branch between the SiLU and the
+    first conv, and the skip input, as the reference's h_upd / x_upd."""
 
     def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
-                 out_channels: int | None = None, dtype: torch.dtype = torch.float32):
+                 out_channels: int | None = None, dtype: torch.dtype = torch.float32,
+                 use_conv: bool = False, use_scale_shift_norm: bool = True, up: bool = False,
+                 down: bool = False):
         super().__init__()
         out_ch = out_channels or channels
+        self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
                                        Conv2d(channels, out_ch, 3, padding=1, dtype=dtype))
-        self.emb_layers = nn.Sequential(nn.SiLU(), Linear(emb_channels, 2 * out_ch, dtype=dtype))
+        self.emb_layers = nn.Sequential(
+            nn.SiLU(), Linear(emb_channels, 2 * out_ch if use_scale_shift_norm else out_ch,
+                              dtype=dtype))
         self.out_layers = nn.Sequential(GroupNorm32(out_ch), nn.SiLU(), nn.Dropout(dropout),
                                         Conv2d(out_ch, out_ch, 3, padding=1, dtype=dtype))
         nn.init.zeros_(self.out_layers[3].weight)
         nn.init.zeros_(self.out_layers[3].bias)
         self.skip_connection = (None if out_ch == channels
-                                else Conv2d(channels, out_ch, 1, dtype=dtype))
+                                else Conv2d(channels, out_ch, 3 if use_conv else 1,
+                                            padding=1 if use_conv else 0, dtype=dtype))
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_layers[2](F.silu(self.in_layers[0](x)))
+        h = F.silu(self.in_layers[0](x))
+        if self.up:
+            h, x = upsample_nearest2x(h), upsample_nearest2x(x)
+        elif self.down:
+            h, x = F.avg_pool2d(h, 2), F.avg_pool2d(x, 2)
+        h = self.in_layers[2](h)
         emb_out = self.emb_layers[1](F.silu(emb))[:, :, None, None].to(h.dtype)
-        scale, shift = emb_out.chunk(2, dim=1)
-        h = self.out_layers[0](h) * (1 + scale) + shift
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = self.out_layers[0](h) * (1 + scale) + shift
+        else:
+            h = self.out_layers[0](h + emb_out)
         h = self.out_layers[3](self.out_layers[2](F.silu(h)))
         skip = x if self.skip_connection is None else self.skip_connection(x)
         return skip + h

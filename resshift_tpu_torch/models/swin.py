@@ -11,6 +11,9 @@
     `shift_fuse_fits` holds, as the JAX package does; on wider maps the
     token permutation of ops/shift.py runs before and after the attention
     half.
+  * `patch_norm` adds a GroupNorm after each projection (patch_embed.norm,
+    patch_unembed.norm); the first block's statistics are then those of
+    the normalised tokens.
   * `use_pallas` is the JAX package's tri-state pin: None (auto) and True
     launch kernels A, B and E on a CUDA tensor; False runs the plain
     composition on every device (the JAX trainer's pin: the kernels'
@@ -218,38 +221,47 @@ class SwinTransformerBlock(nn.Module):
 
 
 class _Proj(nn.Module):
-    def __init__(self, cin: int, cout: int, dtype: torch.dtype):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype, norm: bool = False):
         super().__init__()
         self.proj = Conv2d(cin, cout, 1, dtype=dtype)
+        self.norm = GroupNorm32(cout) if norm else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.proj(x)
+        return x if self.norm is None else self.norm(x)
 
 
 class BasicLayer(nn.Module):
     """Patch-embed -> window partition -> Swin blocks -> window reverse ->
-    patch-unembed (patch size 1, no patch norm)."""
+    patch-unembed (patch size 1), each projection followed by a GroupNorm
+    where `patch_norm`."""
 
     def __init__(self, in_chans: int, embed_dim: int, num_heads: int, window_size: int,
                  depth: int = 2, build_resolution: int = 64, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool | None = None):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool | None = None,
+                 patch_norm: bool = False):
         super().__init__()
         self.ws = build_resolution if build_resolution <= window_size else window_size
-        self.patch_embed = _Proj(in_chans, embed_dim, dtype)
+        self.patch_embed = _Proj(in_chans, embed_dim, dtype, patch_norm)
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(embed_dim, build_resolution, num_heads, window_size,
                                  shift=(i % 2 == 1), mlp_ratio=mlp_ratio, dtype=dtype,
                                  use_pallas=use_pallas)
             for i in range(depth)])
-        self.patch_unembed = _Proj(embed_dim, in_chans, dtype)
+        self.patch_unembed = _Proj(embed_dim, in_chans, dtype, patch_norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, C, H, W)."""
-        x = self.patch_embed.proj(x)
+        x = self.patch_embed(x)
         _, _, h, w = x.shape
         ws = self.ws
         if h % ws or w % ws:
             raise ValueError(f"{(h, w)} not divisible by window {ws}")
-        xt = window_partition_tokens(x.permute(0, 2, 3, 1), ws)
+        # one window is a strided view of an NCHW map: the kernels take
+        # contiguous tokens
+        xt = window_partition_tokens(x.permute(0, 2, 3, 1), ws).contiguous()
         stats = None  # the first block computes them; the kernels emit the rest
         for blk in self.blocks:
             xt, *stats = blk(xt, h, w, stats)
         x = window_reverse_tokens(xt, ws, h, w).permute(0, 3, 1, 2)
-        return self.patch_unembed.proj(x)
+        return self.patch_unembed(x)

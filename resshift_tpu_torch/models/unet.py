@@ -10,7 +10,12 @@
     image_size (log2(lq_size / image_size) levels of conv3x3 to 16 * 2^i
     channels, SiLU, stride-2 conv to twice that), else as it is, and is
     channel-concatenated with x_t;
-  * the head (GN, SiLU, 3x3 conv) runs in the input dtype, float32.
+  * the head (GN, SiLU, 3x3 conv) runs in the input dtype, float32;
+  * the options of the JAX model: `resblock_updown` (a ResBlock with `down`
+    / `up` in place of each Downsample / Upsample), `conv_resample=False`
+    (average pool / nearest 2x without a conv), `use_scale_shift_norm=False`
+    (the embedding added before the second GN) and `patch_norm` (a
+    GroupNorm after each Swin projection).
 `use_pallas` (the config key `model.use_pallas`) is the JAX package's
 tri-state pin: None (the default) launches kernels A, B and E in the Swin
 blocks on a CUDA tensor and leaves kernel F off; True launches F in the
@@ -52,10 +57,6 @@ class UNetModelSwin(nn.Module):
                  cond_mask: bool = False, lq_size: int = 64,
                  dtype: torch.dtype = torch.float32, use_pallas: bool | None = None):
         super().__init__()
-        if resblock_updown or patch_norm or not conv_resample or not use_scale_shift_norm:
-            raise NotImplementedError(
-                "this port covers resblock_updown=False, patch_norm=False, conv_resample=True "
-                "and use_scale_shift_norm=True (the shipped task configs)")
         nrb = [num_res_blocks] * len(channel_mult) if isinstance(num_res_blocks, int) \
             else list(num_res_blocks)
         mc, ted = model_channels, model_channels * 4
@@ -71,10 +72,16 @@ class UNetModelSwin(nn.Module):
                                           image_size // ds * min(window_size, ds))
             return BasicLayer(ch, swin_embed_dim, heads, window_size, swin_depth,
                               build_resolution=ds, mlp_ratio=mlp_ratio, dtype=dtype,
-                              use_pallas=use_pallas)
+                              use_pallas=use_pallas, patch_norm=patch_norm)
 
-        def res(cin, cout):
-            return ResBlock(cin, ted, dropout, cout, dtype=dtype)
+        def res(cin, cout, **updown):
+            return ResBlock(cin, ted, dropout, cout, dtype=dtype,
+                            use_scale_shift_norm=use_scale_shift_norm, **updown)
+
+        def resample(ch, up):
+            if resblock_updown:
+                return res(ch, ch, up=up, down=not up)
+            return (Upsample if up else Downsample)(ch, ch, dtype=dtype, use_conv=conv_resample)
 
         self.time_embed = nn.Sequential(Linear(mc, ted, dtype=dtype), nn.SiLU(),
                                         Linear(ted, ted, dtype=dtype))
@@ -105,7 +112,7 @@ class UNetModelSwin(nn.Module):
                 self.input_blocks.append(nn.ModuleList(layers))
                 chans.append(ch)
             if level != len(channel_mult) - 1:
-                self.input_blocks.append(nn.ModuleList([Downsample(ch, ch, dtype=dtype)]))
+                self.input_blocks.append(nn.ModuleList([resample(ch, up=False)]))
                 chans.append(ch)
                 ds //= 2
         self.middle_block = nn.ModuleList([res(ch, ch), swin(ch, ds), res(ch, ch)])
@@ -117,7 +124,7 @@ class UNetModelSwin(nn.Module):
                 if ds in attention_resolutions and i == 0:
                     layers.append(swin(ch, ds))
                 if level and i == nrb[level]:
-                    layers.append(Upsample(ch, ch, dtype=dtype))
+                    layers.append(resample(ch, up=True))
                     ds *= 2
                 self.output_blocks.append(nn.ModuleList(layers))
         self.out = nn.Sequential(GroupNorm32(ch), nn.SiLU(),

@@ -8,13 +8,15 @@
     uniformly per face (sig_x, sig_y in [2, 10], theta in [0, pi], noise
     in [0, 15], JPEG quality in [40, 90]) from one generator, in the JAX
     package's order;
-  * `pack` raises NotImplementedError: packed files are not ported yet
-    (ROADMAP.md section 1).
+  * `pack`: every image under `--source` (recursively) into one packed file
+    (`data/packfile.py`), keyed by its path relative to `--source`, which
+    the datasets' `pack_path` / `extra_pack_path` read.
 
-Each writes `gt/` and `lq/` PNGs under `--out`.
+The first two write `gt/` and `lq/` PNGs under `--out`.
 
 Run: python -m resshift_tpu_torch.scripts imagenet-sr --source DIR --out DIR [--device cpu]
      python -m resshift_tpu_torch.scripts celeba-faceir --source DIR --out DIR
+     python -m resshift_tpu_torch.scripts pack --source DIR --out FILE
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from .data.realesrgan import DegradationConfig, RealESRGANDegrader
 from .utils.image_io import imread, imwrite, list_images
 
 __all__ = ["TESTING_DEGRADATION", "prepare_testing_imagenet_sr",
-           "prepare_testing_celeba_faceir", "main"]
+           "prepare_testing_celeba_faceir", "pack_folder", "main"]
 
 # configs/degradation_testing_realesrgan.yaml's milder ranges
 TESTING_DEGRADATION = DegradationConfig(
@@ -93,6 +95,20 @@ def prepare_testing_celeba_faceir(source: str, out: str, sf: int = 4,
     print(f"wrote {len(files)} pairs to {out}")
 
 
+def pack_folder(source: str, out: str, recursive: bool = True) -> int:
+    """Every image under `source` into the packed file `out`, keyed by its
+    path relative to `source`; returns the count."""
+    from .data.packfile import PackWriter
+
+    files = list_images(source, recursive=recursive)
+    src = Path(source)
+    with PackWriter(out) as w:
+        for f in files:
+            w.add(str(f.relative_to(src)), f.read_bytes())
+    print(f"packed {len(files)} blobs -> {out}")
+    return len(files)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="resshift_tpu_torch.scripts")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -109,7 +125,7 @@ def main(argv=None):
     b.add_argument("--sf", type=int, default=4)
     b.add_argument("--num-images", type=int, default=None)
     b.add_argument("--seed", type=int, default=10000)
-    c = sub.add_parser("pack", help="pack an image folder into a PackFile (not ported yet)")
+    c = sub.add_parser("pack", help="pack an image folder into a PackFile")
     c.add_argument("--source", required=True)
     c.add_argument("--out", required=True)
     args = p.parse_args(argv)
@@ -117,8 +133,7 @@ def main(argv=None):
         prepare_testing_imagenet_sr(args.source, args.out, args.num_images, args.seed,
                                     args.device)
     elif args.cmd == "pack":
-        raise NotImplementedError("scripts pack is not ported yet: packed files wait for "
-                                  "packfile.py (ROADMAP.md section 1)")
+        pack_folder(args.source, args.out)
     else:
         prepare_testing_celeba_faceir(args.source, args.out, args.sf, args.num_images,
                                       args.seed)

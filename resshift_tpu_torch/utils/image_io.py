@@ -20,7 +20,7 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["IM_EXTS", "imread", "imwrite", "list_images", "to_model", "from_model",
+__all__ = ["IM_EXTS", "imread", "imdecode", "imwrite", "list_images", "to_model", "from_model",
            "make_grid", "png_decode", "png_encode"]
 
 IM_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".JPEG", ".PNG", ".JPG")
@@ -146,26 +146,20 @@ def _gray(rgb: np.ndarray) -> np.ndarray:
 
 # -------------------------------------------------------------- the API
 
-def _read_raw(path: Path, chn: str) -> np.ndarray:
-    """HWC RGB / HW gray in the file's integer type."""
-    cv2 = _cv2()
-    if cv2 is not None:
-        im = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
-        if im is None:
-            raise FileNotFoundError(f"cannot read image: {path}")
-        if chn == "rgb":
-            if im.ndim == 2:
-                im = cv2.cvtColor(im, cv2.COLOR_GRAY2RGB)
-            else:
-                im = cv2.cvtColor(im[..., :3], cv2.COLOR_BGR2RGB)
-        elif chn == "gray" and im.ndim == 3:
-            im = cv2.cvtColor(im[..., :3], cv2.COLOR_BGR2GRAY)
-        return im
-    if path.suffix.lower() != ".png":
-        raise RuntimeError(f"reading {path.suffix} files {_NO_CV2}; PNG files need none")
-    if not path.is_file():
-        raise FileNotFoundError(f"cannot read image: {path}")
-    im = png_decode(path.read_bytes())
+def _cv2_channels(cv2, im: np.ndarray, chn: str) -> np.ndarray:
+    """An image as OpenCV decodes it (BGR, BGRA or gray) -> RGB or gray."""
+    if chn == "rgb":
+        if im.ndim == 2:
+            return cv2.cvtColor(im, cv2.COLOR_GRAY2RGB)
+        return cv2.cvtColor(im[..., :3], cv2.COLOR_BGR2RGB)
+    if chn == "gray" and im.ndim == 3:
+        return cv2.cvtColor(im[..., :3], cv2.COLOR_BGR2GRAY)
+    return im
+
+
+def _png_channels(im: np.ndarray, chn: str) -> np.ndarray:
+    """A decoded PNG (gray, gray+alpha, RGB, RGBA) -> RGB or gray, as cv2's
+    colour or gray read gives it."""
     if im.ndim == 3 and im.shape[2] == 2:
         im = im[..., 0]  # gray + alpha: the alpha is dropped, as cv2 does
     if chn == "rgb":
@@ -175,12 +169,44 @@ def _read_raw(path: Path, chn: str) -> np.ndarray:
     return im
 
 
+def _read_raw(path: Path, chn: str) -> np.ndarray:
+    """HWC RGB / HW gray in the file's integer type."""
+    cv2 = _cv2()
+    if cv2 is not None:
+        im = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+        if im is None:
+            raise FileNotFoundError(f"cannot read image: {path}")
+        return _cv2_channels(cv2, im, chn)
+    if path.suffix.lower() != ".png":
+        raise RuntimeError(f"reading {path.suffix} files {_NO_CV2}; PNG files need none")
+    if not path.is_file():
+        raise FileNotFoundError(f"cannot read image: {path}")
+    return _png_channels(png_decode(path.read_bytes()), chn)
+
+
+def _float(im: np.ndarray, dtype: str) -> np.ndarray:
+    return im.astype(dtype) / 255.0 if dtype.startswith("float") else im
+
+
 def imread(path: str | Path, chn: str = "rgb", dtype: str = "float32") -> np.ndarray:
     """Read an image -> HWC RGB (or HW for chn='gray'), in [0, 1] if float."""
-    im = _read_raw(Path(path), chn)
-    if dtype.startswith("float"):
-        im = im.astype(dtype) / 255.0
-    return im
+    return _float(_read_raw(Path(path), chn), dtype)
+
+
+def imdecode(data: bytes, chn: str = "rgb", dtype: str = "float32",
+             name: str = "") -> np.ndarray:
+    """`imread` of a file's bytes (a packed or cached blob; `name` for the
+    errors): PNG through the codec above where OpenCV is missing."""
+    cv2 = _cv2()
+    if cv2 is not None:
+        im = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_UNCHANGED)
+        if im is None:
+            raise ValueError(f"cannot decode image: {name}")
+        return _float(_cv2_channels(cv2, im, chn), dtype)
+    if data[:8] != _SIG:
+        raise RuntimeError(f"decoding {name or 'a file'} other than PNG {_NO_CV2}; PNG files "
+                           f"need none")
+    return _float(_png_channels(png_decode(data), chn), dtype)
 
 
 def imwrite(im: np.ndarray, path: str | Path, qf: int = 95) -> None:

@@ -8,7 +8,10 @@ seed, through `create_dataset` and the loader; and `cli eval --lpips-path`.
     `test_torch_masks.py`, the GT within 2 levels (of 255) on >= 99% of the
     pixels (`test_torch_distortions.py`'s chain band), the LQ the masked GT;
   * `inpainting_val`: items equal (the mask read as gray);
-  * the types still left out raise, naming ROADMAP.md;
+  * the parameters once left out (packed files, memcached) behave as the
+    JAX package's: a missing packed file raises OSError in both, an
+    `extra_pack_path` without `pack_path` is ignored by both, and memcached
+    gives a dataset reading through a memcached client in both;
   * `cli eval --lpips-path` on a `.pth` written here: the LPIPS column in
     the report and in metrics.json equals the port's LPIPS of the written
     outputs against the GT.
@@ -116,9 +119,19 @@ def test_inpainting_val_items_equal(files):
     ("base", dict(io_backend=dict(type="memcached"))), ("realesrgan", dict(pack_path="x.pack")),
     ("realesrgan", dict(io_backend=dict(type="memcached")))])
 def test_left_out_types_name_the_roadmap(kind, params):
-    """Every dataset type is ported; packed files and memcached are not."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tds.create_dataset(dict(type=kind, params=params))
+    """Packed files and memcached are ported: the same parameters give the
+    same outcome as in the JAX package (tests/test_torch_packfile.py reads
+    real packed files and a memcached stub)."""
+    cfg = dict(type=kind, params=params)
+    if params.get("pack_path"):
+        for ds in (tds, jds):
+            with pytest.raises(OSError):
+                ds.create_dataset(cfg)
+        return
+    t, j = tds.create_dataset(cfg), jds.create_dataset(cfg)
+    assert len(t) == len(j) == 0
+    assert (t.client is None) == (j.client is None)
+    assert t.client is None or t.client.backend == j.client.backend == "memcached"
 
 
 MODEL = dict(image_size=16, in_channels=3, model_channels=32, out_channels=3,

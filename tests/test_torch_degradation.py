@@ -229,7 +229,8 @@ def test_realesrgan_items_bit_identical(hq_dir, kw):
 
 
 def test_other_dataset_types_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Packed files are ported: a missing one raises OSError naming it."""
+    with pytest.raises(OSError, match="x.pack"):
         tds.create_dataset(dict(type="base", params=dict(pack_path="x.pack")))
 
 

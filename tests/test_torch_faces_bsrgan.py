@@ -13,7 +13,7 @@ here but one BSRGAN chain of 400, see `test_bsrgan_chains_match_jax`).
     `deg_from_source`) through both packages' `create_dataset`;
   * `get_transforms` of every type;
   * `scripts celeba-faceir` against the JAX script's PNGs; `imagenet-sr` on
-    the CPU; `pack` naming the ROADMAP;
+    the CPU; `pack` writing every file under its relative path;
   * the port's data modules and scripts in a subprocess where `cv2`, `PIL`,
     `jax` and the JAX package cannot be imported.
 """
@@ -30,6 +30,7 @@ from resshift_tpu import scripts as jscripts
 from resshift_tpu.data import bsrgan as jbsrgan, datasets as jds, faces as jfaces
 from resshift_tpu.data import transforms as jtransforms
 from resshift_tpu_torch import scripts as tscripts
+from resshift_tpu_torch.data.packfile import PackReader
 from resshift_tpu_torch.data import bsrgan as tbsrgan, datasets as tds, faces as tfaces
 from resshift_tpu_torch.data import transforms as ttransforms
 from resshift_tpu_torch.ops.resize import resize_np
@@ -213,8 +214,10 @@ def test_scripts_imagenet_sr_on_the_cpu_and_pack(files, tmp_path):
     assert sorted(p.name for p in (tmp_path / "gt").glob("*.png")) == ["00000.png", "00001.png"]
     assert imread(tmp_path / "gt" / "00000.png").shape == (256, 256, 3)
     assert imread(tmp_path / "lq" / "00001.png").shape == (64, 64, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tscripts.main(["pack", "--source", str(files / "hq"), "--out", str(tmp_path / "x")])
+    tscripts.main(["pack", "--source", str(files / "hq"), "--out", str(tmp_path / "x")])
+    with PackReader(tmp_path / "x") as r:  # every file under its relative path
+        assert r.keys() == ["0.png", "1.png", "2.png"]
+        assert all(r.get(k) == (files / "hq" / k).read_bytes() for k in r.keys())
 
 
 def test_port_data_paths_run_without_opencv_pil_or_jax(files, tmp_path):
