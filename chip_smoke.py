@@ -50,7 +50,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
      route in the f32 UNet head, the tensor-core route in the bf16 tail;
  10. inpaint_imagenet, one 256x256 image with a seeded rectangular mask,
      checked in the same way;
- 11. `cli infer` in subprocesses: inpaint_face with --mask-path (outside the
+ 11. `cli infer` through `cli.main` in this process (phase 8 runs the
+     module's entry point in a subprocess; these ran in subprocesses too
+     until phase 21 needed the time): inpaint_face with --mask-path (outside the
      mask the output equals the input exactly), faceir, realsr --scale 2
      (one LQ side padding to an odd multiple of 64, which the pipeline pads
      on to a multiple of 128);
@@ -79,8 +81,10 @@ and the backward passes (`check_grads`): A and B (both variants) at (8,
 4096, 192) and F at the UNet head and the f4 tail, in bf16 and f32, their
 gradients against the plain versions', E's (its kernel, inverted) bit for
 bit;
- 12. the four tools `python -m resshift_tpu_torch.tools.<tool>` in
-     subprocesses (profile_unet, profile_winograd on all nine conv families
+ 12. the four tools through each one's `main` (what `python -m
+     resshift_tpu_torch.tools.<tool>` calls) in this process (in
+     subprocesses until phase 21 needed the time; phases 14 and 21 still
+     start tools as modules) (profile_unet, profile_winograd on all nine conv families
      of its census, profile_conv, profile_attn_variants; profile_unet's K9
      phase, profile_winograd, profile_conv and profile_attn_variants once
      more with --dtype f32), each at its full width with few iterations:
@@ -130,7 +134,8 @@ bit;
      no weights ship), bf16 on f32 masters, batch 96 in microbatches of 12:
      (a) configs/bicx4_swinunet_lpips.yaml (`bicsr_lpips_config`) on 96
      seeded 288x288 PNGs through the `bicubic` loader (GT crops of 256),
-     3 iterations, then validation on 2 pairs; (b)
+     2 iterations (3 until phase 21 needed the time), then validation on 2
+     pairs; (b)
      configs/inpaint_lama256_face.yaml (`inpaint_face_lpips_config`) on 96
      320x288 PNGs through the `inpainting` loader (LaMa masks and
      distortions on 8 threads), 2 iterations, then validation through
@@ -147,9 +152,11 @@ bit;
      same bits on any machine); (a) configs/faceir_gfpgan512_lpips.yaml
      (`faceir_lpips_config`) on 96 seeded 512x512 PNGs through the
      `gfpgan` loader (the GFPGAN-style degradation in numpy on 8 threads),
-     batch 96 in microbatches of 12, 3 iterations, validation on 2 faces
-     without GT, checked and timed as in phase 18, then `python -m
-     resshift_tpu_torch.scripts celeba-faceir` on 4 faces in a subprocess;
+     batch 96 in microbatches of 12, 2 iterations (3 until phase 21 needed
+     the time), validation on 2 faces without GT, checked and timed as in
+     phase 18, then `scripts celeba-faceir` on 4 faces through
+     `scripts.main` in this process (a subprocess until phase 21 needed the
+     time);
      (b) one batch of 96 from the `bsrgan` (light chain) and
      `bsrganimagenet` (full chain) loaders at GT 256 on 8 threads: shapes,
      range, time;
@@ -170,10 +177,35 @@ bit;
      peak memory, finite gradients, no kernel launched), bf16 against f32 >=
      35 dB; (d) pixel-space training (`autoencoder: null`) at
      tools/train_proof.py's settings (`pixel_train_config`) on 32 synthetic
-     64x64 pairs packed by `python -m resshift_tpu_torch.scripts pack` and
+     64x64 pairs packed by `scripts pack` (through `scripts.main` in this
+     process; subprocesses until phase 21 needed the time) and
      read through `pack_path` / `extra_pack_path` by the native reader: 3
      iterations, finite losses, no launch in a step, A and B in validation
      as derived, ms per iteration split as in phase 17;
+ 21. data parallelism (`parallel_phase`), over two replicas on the one
+     card (`devices=[cuda:0, cuda:0]`: a card listed twice holds two
+     replicas, the second a copy of the first): (a) realsr_v1 at full
+     width, bf16, through `sample_batch_sharded` (8 tiles of 64x64) and
+     `sample_tiles_sharded` (phase 5's chopped 112x176 input, chop 64 /
+     stride 48: 12 tiles): two replicas built, each shard (shard 1 on the
+     copy) bit-equal to `sample` of its own inputs with its rows of the
+     draws on the first, the whole image >= 35 dB from the unsharded
+     `sample` (`tile_bs` = every tile for the tiles), A-D's launches per
+     call (each shard a sample call), and ms per call; then, at a small
+     width in f32 with the models pinned plain, `sample_batch_sharded` over
+     `[cuda:0, cpu]`: the CPU shard (its replica and schedule copied from
+     the card's) bit-equal to a CPU pipeline's `sample` of its inputs and
+     draws, the whole within rtol / atol 5e-3 of the card's `sample`; (b)
+     a `Predictor(data_parallel=True)` over the two replicas under phase
+     13's burst: results as phase 13 checks them, launches per forward, and
+     forwards/s beside phase 13's; (c) `python -m
+     resshift_tpu_torch.tools.multiprocess_proof --nproc 1 --device cuda
+     --modes dp,fsdp`, phase 17's realsr training (batch 64 / 8, GT 256,
+     bf16) in a world-size-1 NCCL group with torchrun's environment, 2
+     iterations with DP (the gradient all-reduce), then 2 with `train.fsdp:
+     true`, in one process; ms per iteration and peak memory of each, then
+     the FSDP checkpoint resumed in this process (no process group) for one
+     more iteration;
 then print the `kernels` JSON line (each kernel's `backward` and its phase-2
 backward error among its keys; every phase's launches under
 `launches_by_phase`) and, last, the result line.
@@ -1022,6 +1054,19 @@ def realsr_train_config(hq_dirs: list, val_lq: str, val_gt: str) -> dict:
     return cfg
 
 
+def run_main(module: str, argv: list) -> str:
+    """`module.main(argv)` (what `python -m module` calls) in this process,
+    its standard output captured and returned: no interpreter to start."""
+    import contextlib
+    import importlib
+    import io
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        importlib.import_module(module).main(argv)
+    return printed.getvalue()
+
+
 def counting(calls: dict, fn, key: str, read, reset):
     """fn with the launches of each call (counts zeroed before it, read after
     a synchronize) appended to calls[key]."""
@@ -1345,7 +1390,7 @@ def lpips_phase(dev, card: str, all_kernels: dict, read_launches, reset, launche
             ("a", bicsr_lpips_config(str(dirs["hq"]), str(dirs["val_lq"]), str(dirs["val_gt"]))),
             ("b", inpaint_face_lpips_config(str(dirs["faces"]), str(dirs["inp_lq"]),
                                             str(dirs["inp_gt"]), str(dirs["inp_mask"])))):
-        n_iter = 3 if part == "a" else 2
+        n_iter = 2  # 18(a) trained 3 until phase 21 needed the time
         name = "bicx4_swinunet_lpips" if part == "a" else "inpaint_lama256_face"
         result[part] = train_lpips(f"18{part}", name, cfg, n_iter, root / f"run_{part}", card,
                                    all_kernels, read_launches, reset, launches, workers)
@@ -1400,15 +1445,12 @@ def faceir_phase(dev, card: str, all_kernels: dict, read_launches, reset, launch
 
     # (a) faceir training, then the test-set script
     cfg = faceir_lpips_config(str(dirs["faces"]), str(dirs["val"]))
-    result = {"a": train_lpips("19a", "faceir_gfpgan512_lpips", cfg, 3, root / "run_a", card,
+    result = {"a": train_lpips("19a", "faceir_gfpgan512_lpips", cfg, 2, root / "run_a", card,
                                all_kernels, read_launches, reset, launches, workers)}
     t1 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "resshift_tpu_torch.scripts", "celeba-faceir",
-                           "--source", str(dirs["celeba"]), "--out", str(root / "celeba_out")],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if proc.returncode:
-        raise AssertionError(f"scripts celeba-faceir exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
+    printed = run_main("resshift_tpu_torch.scripts", ["celeba-faceir", "--source",
+                                                        str(dirs["celeba"]), "--out",
+                                                        str(root / "celeba_out")])
     for sub in ("lq", "gt"):
         outs = sorted((root / "celeba_out" / sub).glob("*.png"))
         shapes = {imread(f).shape for f in outs}
@@ -1416,7 +1458,7 @@ def faceir_phase(dev, card: str, all_kernels: dict, read_launches, reset, launch
             raise AssertionError(f"scripts celeba-faceir wrote {len(outs)} {sub} PNGs {shapes}")
     result["celeba_faceir_s"] = time.perf_counter() - t1
     print(f"  scripts celeba-faceir on 4 faces: 4 lq / gt pairs of 512x512 in "
-          f"{result['celeba_faceir_s']:.1f} s ({proc.stdout.strip()})", flush=True)
+          f"{result['celeba_faceir_s']:.1f} s ({printed.strip()})", flush=True)
 
     # (b) one batch of each BSRGAN chain on the loader's threads
     for kind, chain in (("bsrgan", "bsrgan_light"), ("bsrganimagenet", "bsrgan")):
@@ -1826,11 +1868,8 @@ def pixel_train_phase(dev, card: str, all_kernels: dict, read_launches, reset, l
         imwrite(lq, root / f"{val}lq" / f"{i:03d}.png")
     t1 = time.perf_counter()
     for sub in ("lq", "gt"):
-        proc = subprocess.run([sys.executable, "-m", "resshift_tpu_torch.scripts", "pack",
-                               "--source", str(root / sub), "--out", str(root / f"{sub}.pack")],
-                              cwd=ROOT, capture_output=True, text=True, timeout=300)
-        if proc.returncode:
-            raise AssertionError(f"scripts pack exited {proc.returncode}: {proc.stderr[-2000:]}")
+        run_main("resshift_tpu_torch.scripts", ["pack", "--source", str(root / sub), "--out",
+                                                str(root / f"{sub}.pack")])
     with PackReader(root / "gt.pack") as r:
         if not r.native or len(r) != n_pairs:
             raise AssertionError(f"20d: the pack holds {len(r)} images (native {r.native})")
@@ -1880,28 +1919,307 @@ def pixel_train_phase(dev, card: str, all_kernels: dict, read_launches, reset, l
     return {"ms_per_iteration": it_ms, **times, "peak_gib": peak}
 
 
-def run_tools(root: Path) -> dict:
-    """Phase 12: each tool of TOOL_RUNS in its own process on the card, at its
-    full width with two timed calls; each must exit 0, launch its kernels
-    and none of those it must not.  The conv tools' results must also hold
-    their kernel against F.conv2d in f32 within TOOL_BAND of the largest
-    output at every shape.  Returns {kernel name: launches} summed over the
-    tools."""
+# the realsr structure at small width (window 4, LQ 16, f4 VQGAN), 3 steps
+SMALL_REALSR = dict(
+    task="realsr", sf=4,
+    model=dict(image_size=16, in_channels=3, model_channels=32, out_channels=3,
+               attention_resolutions=[16, 8], dropout=0.0, channel_mult=[1, 2],
+               num_res_blocks=[1, 1], conv_resample=True, num_head_channels=16,
+               use_scale_shift_norm=True, resblock_updown=False, swin_depth=2,
+               swin_embed_dim=32, window_size=4, mlp_ratio=2, cond_lq=True,
+               cond_mask=False, lq_size=16),
+    diffusion=dict(schedule_name="exponential", steps=3, min_noise_level=0.04,
+                   etas_end=0.99, kappa=2.0, power=0.3, predict_type="xstart",
+                   timestep_respacing=None, normalize_input=True, latent_flag=True,
+                   scale_factor=1.0, sf=4),
+    autoencoder=dict(embed_dim=3, n_embed=64, ddconfig=dict(
+        double_z=False, z_channels=3, resolution=64, in_channels=3, out_ch=3, ch=32,
+        ch_mult=[1, 2, 4], num_res_blocks=1, attn_resolutions=[], dropout=0.0)),
+    inference=dict(chop_size=16, chop_stride=12, padding_offset=16),
+)
+
+
+def cross_device_shards(dev) -> None:
+    """Phase 21(a)'s `sample_batch_sharded` over [card, cpu] at SMALL_REALSR
+    in f32, the models pinned plain: the CPU shard runs on a replica and a
+    schedule copied from the card's pipeline, its draws moved from the
+    card's generator, and its output gathered back."""
+    import torch
+
+    from resshift_tpu_torch.pipeline import ResShiftPipeline
+
+    cpu = torch.device("cpu")
+    pipes = [ResShiftPipeline(SMALL_REALSR, dtype=torch.float32, device=d) for d in (dev, cpu)]
+    for p in pipes:
+        p.init_params(0)
+        p.unet, p.vq = p.unet.clone(use_pallas=False), p.vq.clone(use_pallas=False)
+    pipe, cpu_pipe = pipes
+    lq = torch.rand(4, 16, 16, 3, generator=torch.Generator().manual_seed(24)) * 2 - 1
+    gen = lambda: torch.Generator(device=dev).manual_seed(25)
+    want = pipe.sample(lq.to(dev), gen())
+    calls, orig = [], pipe._sample_padded
+
+    def rec(*a, **k):
+        out = orig(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    pipe._sample_padded = rec
+    try:
+        got = pipe.sample_batch_sharded(lq.to(dev), gen(), [dev, cpu])
+    finally:
+        del pipe._sample_padded
+    keys = sorted(pipe._compute, key=str)
+    if [k[0].type for k in keys] != ["cpu", "cuda"] or pipe._schedule(cpu) is pipe.sched:
+        raise AssertionError(f"21a cross-device: replicas {keys}")
+    if [(a[0].device.type, k["draws"][0].device.type) for a, k, _ in calls] != [
+            ("cuda", "cuda"), ("cpu", "cpu")]:
+        raise AssertionError("21a cross-device: the shards' inputs are not on their devices")
+    for (a, k, out), p in zip(calls, pipes):
+        alone = p.sample(a[0], draws=k["draws"])
+        if out.device != alone.device or not torch.equal(out, alone):
+            raise AssertionError(f"21a cross-device: the {out.device} shard differs from "
+                                 f"sample on {alone.device}")
+    err = (got.cpu() - want.cpu()).abs().max().item()
+    print(f"  21a cross-device: 4 images of 16x16 over [{dev}, cpu] at a small width, f32, "
+          f"plain: each shard bit-equal to sample on its own device (the CPU one a pipeline "
+          f"of its own), the whole within {err:.3g} of the card's sample (bar 5e-3)",
+          flush=True)
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=5e-3, atol=5e-3)
+
+
+def parallel_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict,
+                   sds: dict, serve13: dict) -> dict:
+    """Phase 21 (see the module docstring); `sds` are phase 3's weights,
+    `serve13` phase 13's figures.  Returns its figures."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.pipeline import ResShiftPipeline
+    from resshift_tpu_torch.serve import Predictor
+    from resshift_tpu_torch.train_loop import Trainer
+
+    result = {}
+    two = [dev, dev]
+    pipe = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16, device=dev)
+    pipe.load_state_dicts(**sds)
+    gen = lambda: torch.Generator(device=dev).manual_seed(22)
+    per_call = expected_launches(pipe.config, 64, 64)
+    both = {k: 2 * v for k, v in per_call.items()}
+
+    def sharded(tag, fn, inner, check_shard, ref):
+        """fn() with the shards' calls of `pipe.<inner>` recorded; each shard
+        rerun alone and held bit-equal; the whole against `ref`."""
+        calls, orig = [], getattr(pipe, inner)
+
+        def rec(*a, **k):
+            out = orig(*a, **k)
+            calls.append((a, k, out))
+            return out
+
+        pipe.__dict__[inner] = rec
+        latents, decode = [], pipe._decode
+        pipe._decode = lambda vqm, z: latents.append(z.float().clone()) or decode(vqm, z)
+        try:
+            reset()
+            out = fn()
+            torch.cuda.synchronize()
+            got = read_launches(all_kernels, sb)
+        finally:
+            del pipe.__dict__[inner]
+            pipe._decode = decode
+        launches[tag] = got
+        print(f"  {tag}: launches in one call {got} (derived: two shards x {per_call})",
+              flush=True)
+        if got != both or not all(got[k] for k in "ABCD"):
+            raise AssertionError(f"{tag}: launch counts {got}, want {both}")
+        if len(calls) != 2 or out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"{tag}: {len(calls)} shard calls, output {tuple(out.shape)}")
+        home = torch.device("cuda", torch.cuda.current_device())
+        unets = [pipe._compute.get((home, i), (None,))[0] for i in (0, 1)]
+        if (set(pipe._compute) != {(home, 0), (home, 1)} or unets[0] is unets[1]
+                or [k["slot"] for _, k, _ in calls] != [0, 1]):
+            raise AssertionError(f"{tag}: replicas {list(pipe._compute)}, want two on {home}")
+        copy_gib = sum(t.numel() * t.element_size() for m in pipe._compute[(home, 1)]
+                       if m is not None for t in m.state_dict().values()) / 2 ** 30
+        for i, (a, k, shard_out) in enumerate(calls):
+            alone = check_shard(a, k)
+            torch.cuda.synchronize()
+            if not torch.equal(alone, shard_out):
+                diff = (alone != shard_out).float().mean().item()
+                raise AssertionError(f"{tag}: shard {i} differs from sample of its inputs "
+                                     f"with its draws in {100 * diff:.4f}% of values")
+        psnr, same = db(out, ref, 2.0), (out == ref).float().mean().item()
+        print(f"  {tag}: two replicas (the copy's tensors {copy_gib:.3f} GiB); each shard "
+              f"bit-equal to sample of its inputs and draws on the first; "
+              f"against the unsharded sample: image {psnr:.2f} dB (bar 35), "
+              f"{100 * same:.2f}% of values bit-equal", flush=True)
+        if not psnr >= 35.0:
+            raise AssertionError(f"{tag}: image PSNR {psnr:.2f} dB against sample below 35")
+        return psnr
+
+    def timed(fn, n=2):
+        """ms of each of n calls of fn()."""
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return times
+
+    # ------------------------------------------------------------ 21(a)
+    lq = torch.rand(BSZ, 64, 64, 3, generator=torch.Generator().manual_seed(23)).to(dev) * 2 - 1
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ref = pipe.sample(lq, gen())
+    torch.cuda.synchronize()
+    ref_ms = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        pipe.sample(lq, gen())
+        torch.cuda.synchronize()
+        ref_ms.append((time.perf_counter() - t1) * 1e3)
+    batch = lambda: pipe.sample_batch_sharded(lq, gen(), two)
+    result["batch_db"] = sharded(
+        "21a batch", batch, "_sample_padded",
+        lambda a, k: pipe.sample(a[0], draws=k["draws"]), ref)
+    times = timed(batch)
+    result["batch_ms"] = statistics.median(times)
+    print(f"  21a batch: {BSZ} tiles over 2 replicas: {times} ms a call; unsharded sample "
+          f"{ref_ms} ms; on {card}", flush=True)
+
+    lq2 = torch.rand(1, 112, 176, 3, generator=torch.Generator().manual_seed(4)).to(dev) * 2 - 1
+    grid_tiles = 12  # 128x192 padded, chop 64, stride 48: 3 x 4 starts
+    chop = dict(chop_size=64, chop_stride=48)
+    ref2 = pipe.sample(lq2, gen(), tile_bs=grid_tiles, **chop)
+    tiles = lambda: pipe.sample_tiles_sharded(lq2, gen(), two, **chop)
+    result["tiles_db"] = sharded(
+        "21a tiles", tiles, "_sample_tile",
+        lambda a, k: pipe.sample(a[0], draws=(k["noise"], k["step_noise"])), ref2)
+    times = timed(tiles)
+    result["tiles_ms"] = statistics.median(times)
+    print(f"  21a tiles: {grid_tiles} tiles of one 112x176 input over 2 replicas: {times} ms "
+          f"a call; on {card}", flush=True)
+    del pipe, ref, ref2
+    cross_device_shards(dev)
+
+    # ------------------------------------------------------------ 21(b)
+    burst = serve13["burst"]
+    pred = Predictor("realsr_v3", max_batch=serve13["max_batch"], max_queue=burst,
+                     batch_window_s=0.05, seed=14, data_parallel=True, devices=two)
+    try:
+        pred.warmup((64, 64))
+        n0 = len(pred.batch_sizes)
+        img = torch.randint(0, 256, (64, 64, 3), generator=torch.Generator().manual_seed(15),
+                            dtype=torch.uint8).numpy()
+        outs, errors = {}, []
+
+        def ask(i):
+            try:
+                outs[i] = pred.predict(img)
+            except Exception as e:  # noqa: BLE001 -- raised below, after the join
+                errors.append(e)
+
+        reset()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(burst)]
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t1
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"21b: burst failed: {errors[:3]}")
+        sizes = pred.batch_sizes[n0:]
+        forwards = len(sizes)
+        launches["21b"] = got = read_launches(all_kernels, sb)
+        per = expected_launches(pred.pipe.config, 64, 64)
+        want = {k: 2 * v * forwards for k, v in per.items()}
+        print(f"  21b: batch sizes {sizes}; launches {got} (derived: {forwards} forwards x 2 "
+              f"shards x {per})", flush=True)
+        if got != want or sum(sizes) != burst:
+            raise AssertionError(f"21b: launch counts {got}, want {want}; sizes {sizes}")
+        for i in range(burst):
+            o = outs[i]
+            if o.shape != (256, 256, 3) or not np.isfinite(o).all():
+                raise AssertionError(f"21b: output {i}: {o.shape}")
+            if i and np.array_equal(o, outs[0]):
+                raise AssertionError(f"21b: outputs 0 and {i} are equal for identical inputs")
+        result["serve_forwards_per_s"] = forwards / wall
+        print(f"  21b: {burst} requests in {wall * 1e3:.1f} ms: {forwards / wall:.3f} "
+              f"forwards/s, {burst * 256 * 256 / wall / 1e6:.4f} Mpx/s (phase 13, one replica: "
+              f"{serve13['forwards_per_s']:.3f} forwards/s, {serve13['mpx']:.4f} Mpx/s), on "
+              f"{card}", flush=True)
+    finally:
+        pred.close()
+    del pred, outs
+
+    # ------------------------------------------------------------ 21(c)
+    torch.cuda.empty_cache()  # the workers' memory: this process keeps none cached
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    dirs = write_train_data(root, 64, 2, 0)
+    cfg = realsr_train_config([str(dirs["hq"])], str(dirs["val_lq"]), str(dirs["val_gt"]))
+    cfg["train"].update(log_freq=[1, 10 ** 9], val_freq=10 ** 9, save_freq=10 ** 9)
+    (root / "cfg.json").write_text(json.dumps(cfg))
+    cmd = [sys.executable, "-m", "resshift_tpu_torch.tools.multiprocess_proof", "--out",
+           str(root / "proof"), "--nproc", "1", "--device", "cuda", "--iters", "2", "--modes",
+           "dp,fsdp", "--config", str(root / "cfg.json"), "--timeout", "400", "--threads", "4"]
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=460)
+    if r.returncode != 0:
+        raise AssertionError(f"21c: the proof failed (rc {r.returncode}):\n{r.stdout[-3000:]}\n"
+                             f"{r.stderr[-3000:]}")
+    report = json.loads(r.stdout.strip().splitlines()[-1])
+    for mode in ("dp", "fsdp"):
+        rep = report[mode]
+        print(f"  21c {mode}: world size 1 (NCCL), {rep['step']} iterations: step ms "
+              f"{[round(t, 1) for t in rep['step_ms'][0]]}, peak max_memory_allocated "
+              f"{rep['peak_gib'][0]:.2f} GiB, state cut to {rep['shard_share']} a rank, "
+              f"{rep['wall_s'][0]:.1f} s from the trainer's start to its checkpoint; on {card}",
+              flush=True)
+        if rep["step"] != 2 or rep["fsdp"] != (mode == "fsdp"):
+            raise AssertionError(f"21c {mode}: {rep}")
+        result[f"train_{mode}"] = {"step_ms": rep["step_ms"][0], "peak_gib": rep["peak_gib"][0]}
+    print(f"  21c: both runs in one process, {report['wall_s']:.1f} s with start-up", flush=True)
+    ckpt = root / "proof" / "fsdp" / "run" / "ckpts" / "step_00000002"
+    tr = Trainer(cfg, save_dir=str(root / "resumed"), resume=str(ckpt), dtype=torch.bfloat16,
+                 seed=0, device=dev)
+    tr.train(stop_iter=3)
+    log = [json.loads(ln) for ln in (root / "resumed" / "train_log.jsonl").read_text()
+           .splitlines() if '"loss"' in ln]
+    print(f"  21c: the FSDP checkpoint resumed in this process (no process group) at step "
+          f"{tr.start_iter}: iteration {log[-1]['iter']}, loss {log[-1]['loss']:.5f}, step "
+          f"{log[-1]['step_ms']:.1f} ms", flush=True)
+    if tr.start_iter != 2 or log[-1]["iter"] != 3 or not math.isfinite(log[-1]["loss"]):
+        raise AssertionError(f"21c: the resume of the FSDP checkpoint: {log}")
+    del tr
+    tmp.cleanup()
+    return result
+
+
+def run_tools() -> dict:
+    """Phase 12: each tool of TOOL_RUNS through its `main` (the function its
+    `python -m` entry point calls), in this process on the card, at its full
+    width with two timed calls; each must launch its kernels and none of
+    those it must not.  The conv tools' results must also hold their kernel
+    against F.conv2d in f32 within TOOL_BAND of the largest output at every
+    shape.  Returns {kernel name: launches} summed over the tools."""
     counts: dict[str, int] = {}
     for name, args, kernels, not_kernels in TOOL_RUNS:
-        cmd = [sys.executable, "-m", f"resshift_tpu_torch.tools.{name}", *args, "--n-iter", "2",
-               "--reps", "1"]
         t1 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise AssertionError(f"{name} failed (rc {r.returncode}):\n{r.stdout}\n{r.stderr}")
-        lines = r.stdout.strip().splitlines()
+        lines = run_main(f"resshift_tpu_torch.tools.{name}",
+                         [*args, "--n-iter", "2", "--reps", "1"]).strip().splitlines()
         out = json.loads(lines[-1])
         for line in lines[:-1]:
             print(f"  {name}: {line}", flush=True)
         got = {k: v["launches"] for k, v in out["launches"].items()}
-        print(f"  {name} {' '.join(args)}: {time.perf_counter() - t1:.1f} s with start-up, "
-              f"launches {got}, on {out['device']['card']}", flush=True)
+        print(f"  {name} {' '.join(args)}: {time.perf_counter() - t1:.1f} s, launches {got}, "
+              f"on {out['device']['card']}", flush=True)
         if not all(got.get(k, 0) > 0 for k in kernels) or any(got.get(k, 0)
                                                               for k in not_kernels):
             raise AssertionError(f"{name} launched {got}; it must launch {kernels} and not "
@@ -2208,7 +2526,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     # ---------------------------------------------------------------- 1
-    t0 = time.perf_counter()
+    t0 = t_main = time.perf_counter()
     _ext.build_all()
     print(f"phase 1: kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
     for log in sorted((ROOT / "resshift_tpu_torch" / "_build").glob("*.log")):
@@ -2218,6 +2536,7 @@ def main() -> int:
                 print(f"  {log.stem}: {line.strip()}")
 
     # ---------------------------------------------------------------- 2
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 2: kernels against their plain versions", flush=True)
     errs, timed = check_kernels(dev)
     timed["E"], errs["E"] = check_shift(dev), 0.0
@@ -2236,6 +2555,7 @@ def main() -> int:
     grad_errs = check_grads(dev)
 
     # ---------------------------------------------------------------- 3
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 3: realsr_v1, full width, bf16, 15 steps, batch 8 of 64x64", flush=True)
 
     pipe = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16)
@@ -2342,10 +2662,12 @@ def main() -> int:
     profile_sample(torch, lambda: run("kernel"))
 
     # ---------------------------------------------------------------- 4
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 4: the same sample through the plain versions", flush=True)
     latent_psnr(out, plain_path(run, fa.attention_plain))
 
     # ---------------------------------------------------------------- 5
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 5: a chopped 112x176 input (chop 64, stride 48, tile_bs 16)", flush=True)
     lq2 = torch.rand(1, 112, 176, 3, generator=torch.Generator().manual_seed(4)).to(dev) * 2 - 1
     out2 = pipe.sample(lq2, torch.Generator(device=dev).manual_seed(5), chop_size=64,
@@ -2377,6 +2699,7 @@ def main() -> int:
     del pipe, pipe32, run, out, out2, out32
 
     # ---------------------------------------------------------------- 6, 7
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     pipe3 = ResShiftPipeline("realsr_v3", dtype=torch.bfloat16)
     pipe3.load_state_dicts(**sds)  # the same model as realsr_v1, the same weights
     for phase, (lh, lw), seed in (("6", (176, 250), 8), ("7", (512, 512), 9)):
@@ -2418,25 +2741,31 @@ def main() -> int:
     del pipe3
 
     # ---------------------------------------------------------------- 8
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 8: python -m resshift_tpu_torch.cli infer on two PNGs (realsr_v1, bf16)",
           flush=True)
     import numpy as np
 
     from resshift_tpu_torch.utils.image_io import png_decode, png_encode
 
-    def cli_infer(args: list, src: Path, dst: Path) -> None:
-        """`cli infer` with `args` on folder `src` in a subprocess."""
-        cmd = [sys.executable, "-m", "resshift_tpu_torch.cli", "infer", *args, "--seed", "0",
-               "--in-path", str(src), "--out-path", str(dst)]
+    def cli_infer(args: list, src: Path, dst: Path, subprocess_: bool = True) -> None:
+        """`cli infer` with `args` on folder `src`: `python -m` in a subprocess,
+        or `cli.main` in this process."""
+        argv = ["infer", *args, "--seed", "0", "--in-path", str(src), "--out-path", str(dst)]
         t1 = time.perf_counter()
-        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if subprocess_:
+            r = subprocess.run([sys.executable, "-m", "resshift_tpu_torch.cli", *argv], cwd=ROOT,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"cli infer {args} failed (rc {r.returncode}):\n"
+                                     f"{r.stdout}\n{r.stderr}")
+            stdout = r.stdout
+        else:
+            stdout = run_main("resshift_tpu_torch.cli", argv)
         cli_s = time.perf_counter() - t1
-        if r.returncode != 0:
-            raise AssertionError(f"cli infer {args} failed (rc {r.returncode}):\n{r.stdout}\n"
-                                 f"{r.stderr}")
-        done = [ln for ln in r.stdout.splitlines() if ln.startswith("Done:")]
-        print(f"  {' '.join(args)}: {done[0] if done else 'no Done line'} ({cli_s:.1f} s with "
-              f"start-up)", flush=True)
+        done = [ln for ln in stdout.splitlines() if ln.startswith("Done:")]
+        print(f"  {' '.join(args)}: {done[0] if done else 'no Done line'} ({cli_s:.1f} s"
+              f"{' with start-up' if subprocess_ else ', in process'})", flush=True)
 
     def read_output(path: Path, shape: tuple) -> np.ndarray:
         sr = png_decode(path.read_bytes())
@@ -2458,6 +2787,7 @@ def main() -> int:
             read_output(dst / f"{name}.png", (4 * h, 4 * w, 3))
 
     # ---------------------------------------------------------------- 9, 10
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     from resshift_tpu_torch.config import task_config
 
     def task_pipeline(name: str, pin: bool, sds=None):
@@ -2531,8 +2861,9 @@ def main() -> int:
         del pinned, unpinned, run, urun, out
 
     # ---------------------------------------------------------------- 11
-    print("phase 11: cli infer: inpaint_face with --mask-path, faceir, realsr --scale 2",
-          flush=True)
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
+    print("phase 11: cli infer through cli.main in this process (phase 8 ran the module "
+          "entry point): inpaint_face with --mask-path, faceir, realsr --scale 2", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for d in ("inp", "masks", "face", "x2"):
@@ -2545,7 +2876,7 @@ def main() -> int:
         m[64:160, 80:200] = 255
         (tmp / "masks" / "a_face.png").write_bytes(png_encode(m))
         cli_infer(["--task", "inpaint_face", "--mask-path", str(tmp / "masks")], tmp / "inp",
-                  tmp / "inp_out")
+                  tmp / "inp_out", subprocess_=False)
         keep = m == 0
         for n, im in ims.items():
             sr = read_output(tmp / "inp_out" / f"{n}.png", (256, 256, 3))
@@ -2555,7 +2886,7 @@ def main() -> int:
             print(f"  {n}.png: equal to the input at all {int(keep.sum())} px outside the mask, "
                   f"restored inside", flush=True)
         (tmp / "face" / "face.png").write_bytes(png_encode(png(512, 512, 3)))
-        cli_infer(["--task", "faceir"], tmp / "face", tmp / "face_out")
+        cli_infer(["--task", "faceir"], tmp / "face", tmp / "face_out", subprocess_=False)
         read_output(tmp / "face_out" / "face.png", (512, 512, 3))
         # the wide one pads to 128x256; 150 pads to 192 by the padding
         # offset, whose latent (96) the deepest Swin level's windows do not
@@ -2563,19 +2894,23 @@ def main() -> int:
         x2_sizes = {"square": (128, 128), "wide": (100, 230), "odd": (100, 150)}
         for n, (h, w) in x2_sizes.items():
             (tmp / "x2" / f"{n}.png").write_bytes(png_encode(png(h, w, 3)))
-        cli_infer(["--task", "realsr", "--scale", "2"], tmp / "x2", tmp / "x2_out")
+        cli_infer(["--task", "realsr", "--scale", "2"], tmp / "x2", tmp / "x2_out",
+                  subprocess_=False)
         for n, (h, w) in x2_sizes.items():
             read_output(tmp / "x2_out" / f"{n}.png", (2 * h, 2 * w, 3))
 
     # ---------------------------------------------------------------- 12
-    print("phase 12: the port's tools in subprocesses (full width, 2 timed calls each)",
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
+    print("phase 12: the port's tools through their main functions (full width, 2 timed "
+          "calls each)",
           flush=True)
-    counts = run_tools(ROOT)
+    counts = run_tools()
     launches["12"] = {key: counts.get(kern.name, 0) for key, kern in all_kernels.items()}
     launches["12"].update({key: counts.get(name, 0) for key, name in PROBE_KERNELS.items()})
     print(f"  launches in phase 12: {launches['12']}", flush=True)
 
     # ---------------------------------------------------------------- 13
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 13: serving in process: Predictor (realsr_v3, full width, bf16), buckets "
           "1-16 warmed up at 64x64, a concurrent burst", flush=True)
     import threading
@@ -2630,6 +2965,8 @@ def main() -> int:
                 raise AssertionError(f"outputs 0 and {i} are equal for identical inputs")
         lat = sorted(list(pred._lat)[-forwards:])
         q = lambda f: lat[min(len(lat) - 1, int(f * len(lat)))] * 1e3
+        serve13 = {"burst": burst, "max_batch": max_batch, "forwards_per_s": forwards / wall,
+                   "mpx": burst * 256 * 256 / wall / 1e6}
         print(f"  {burst} requests in {wall * 1e3:.1f} ms: {forwards / wall:.3f} forwards/s, "
               f"{burst * 256 * 256 / wall / 1e6:.4f} Mpx/s of 256x256 output, forward p50 "
               f"{q(0.5):.1f} ms, p99 {q(0.99):.1f} ms, on {card}", flush=True)
@@ -2675,6 +3012,7 @@ def main() -> int:
     del pred, outs
 
     # ---------------------------------------------------------------- 14
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 14: python -m resshift_tpu_torch.tools.serve_loadtest (the HTTP path, a "
           "server subprocess)", flush=True)
     import socket
@@ -2715,6 +3053,7 @@ def main() -> int:
           f"most {o['reject_latency_ms_max']:.1f} ms", flush=True)
 
     # ---------------------------------------------------------------- 15
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 15: DDPM (configs/ddpm_ablation.yaml: DDIM, 50 of 1000 steps) on realsr_v1, "
           "full width, bf16, 8 x 64x64", flush=True)
     cfg = task_config("realsr_v1")
@@ -2753,6 +3092,7 @@ def main() -> int:
     del dpipe, run, out, out_plain
 
     # ---------------------------------------------------------------- 16
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 16: realsr_v1, 8 x 64x64: sample_time_parallel (Picard) and "
           "sample_progressive against sample", flush=True)
     pipe1 = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16)
@@ -2817,23 +3157,27 @@ def main() -> int:
     del pipe1, ref, final, strip
 
     # ---------------------------------------------------------------- 17
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 17: realsr_v1 training, full width (UNet 160, Swin 192 / 6 x 32 / 8x8, f4 "
           "VQGAN), seeded random weights, bf16 compute on f32 masters, batch 64 in "
           "microbatches of 8, GT 256", flush=True)
     train_phase(dev, card, all_kernels, read_launches, reset, launches)
 
     # ---------------------------------------------------------------- 18
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 18: the LPIPS trainer at full width (bicsr, then inpaint_face), seeded "
           "random weights (LPIPS too: none ship), bf16 compute on f32 masters", flush=True)
     lpips_phase(dev, card, all_kernels, read_launches, reset, launches)
 
     # ---------------------------------------------------------------- 19
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 19: faceir training at full width (f8 VQGAN, UNet 160, GT 512), seeded "
           "random weights, bf16 compute on f32 masters; scripts celeba-faceir; the bsrgan "
           "loaders; the JPEG round trip", flush=True)
     faceir_phase(dev, card, all_kernels, read_launches, reset, launches)
 
     # ---------------------------------------------------------------- 20
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
     print("phase 20: the architecture options and the trainable variants: (a) realsr_v1 "
           "under the UNet options, (b) AutoencoderKL at KL-f16's shape, (c) UNetModel and "
           "UNetModelConv, (d) pixel-space training from packed files", flush=True)
@@ -2841,6 +3185,14 @@ def main() -> int:
     autoencoder_kl_phase(dev, card, all_kernels, read_launches, reset, launches)
     variants_phase(dev, card, all_kernels, read_launches, reset, launches)
     pixel_train_phase(dev, card, all_kernels, read_launches, reset, launches)
+
+    # ---------------------------------------------------------------- 21
+    print(f"[{time.perf_counter() - t_main:.1f} s into the run]", flush=True)
+    print("phase 21: data parallelism over two replicas on the one card: (a) the batch- and "
+          "tile-sharded samplers, (b) serving, (c) DP and FSDP training in a world-size-1 NCCL "
+          "group", flush=True)
+    parallel_phase(dev, card, all_kernels, read_launches, reset, launches, v1_sds, serve13)
+    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_main:.1f} s", flush=True)
 
     rows = kernel_rows(launches, errs, timed)
     backward = {"A": "autograd Function: the plain version's gradient, recomputed",

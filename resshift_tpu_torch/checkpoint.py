@@ -3,11 +3,14 @@
 A train state (`TrainStep.state_dict()`: step, params, EMA, the AdamW
 moments, each name -> tensor) goes to `<dir>/step_XXXXXXXX/state.pt`;
 resuming replays the learning rate exactly, since the step is in the
-state.  `AsyncSaver` copies the state to the host at once (so that the loop
-may go on updating its tensors) and writes the file on a background
-thread; the next save or `wait` joins it and raises its error if
-it failed.  Files are written to a temporary name and renamed, so a
-crash never leaves a half-written checkpoint under the final name.
+state.  An FSDP state is gathered whole before it is saved
+(`TrainStep.state_dict`; rank 0 writes), so a checkpoint is the same file
+at any world size and resumes at world size 1 or N.  `AsyncSaver` copies
+the state to the host at once (so that the loop may go on updating its
+tensors) and writes the file on a background thread; the next save or
+`wait` joins it and raises its error if it failed.  Files are written to
+a temporary name and renamed, so a crash never leaves a half-written
+checkpoint under the final name.
 
 The JAX package's checkpoints are orbax directories; this port reads none
 (no orbax here): `load_params` and `restore_train_state` say so.  Released

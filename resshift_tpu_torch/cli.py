@@ -8,16 +8,26 @@
   train  train a task from a config whose data.train names the images
          (--save-dir, --resume ckpts/step_XXXXXXXX); SIGTERM checkpoints
 
-The single-device part of the JAX package's `cli infer` / `cli eval` /
-`cli train`.
-Images are grouped by shape into batches of `--bs`; a reader thread reads
-ahead while the main thread launches the sampler, and a writer thread waits
-for each batch's result and writes its PNGs.  The noise comes from one
-`torch.Generator` on the device, seeded from `--seed`, which each batch
-advances in turn.  Everything runs on CUDA unless `--device cpu` is given.
+The JAX package's `cli infer` / `cli eval` / `cli train`, on one card or
+several.  Images are grouped by shape into batches of `--bs`; a reader
+thread reads ahead while the main thread launches the sampler, and a writer
+thread waits for each batch's result and writes its PNGs.  The noise comes
+from one `torch.Generator` on the device, seeded from `--seed`, which each
+batch advances in turn.  Everything runs on CUDA unless `--device cpu` is
+given.
+
+Several cards.  Under `torchrun --nproc-per-node N` (or with
+`--distributed`, which requires the process group to come up) each process
+takes its own card, `infer` and `eval` restore every N-th file from the
+rank's offset and rank 0 reports the metrics over all of them, and `train`
+runs data-parallel (or FSDP with `train.fsdp: true`).  A single process
+that owns several cards splits each batch over them
+(`ResShiftPipeline.sample_batch_sharded`), or a single image larger than
+the chop size by its tiles (`sample_tiles_sharded`).
 
 `--time-parallel SWEEPS` runs an unchopped input's reverse chain as
-Picard sweeps (`ResShiftPipeline.sample_time_parallel`).
+Picard sweeps (`ResShiftPipeline.sample_time_parallel`), each sweep's batch
+split over the process's cards.
 
 Inpainting masks (`--mask-path`, a file or a folder) are read as gray and
 mapped to [-1, 1] (white: the region to fill); each image takes the mask
@@ -44,6 +54,7 @@ import numpy as np
 import torch
 
 from .config import CKPT_URLS, default_chop, load_yaml_config, task_config
+from .parallel import mesh
 from .pipeline import ResShiftPipeline
 from .utils.image_io import from_model, imread, imwrite, list_images, to_model
 from .utils.io_pipeline import AsyncWriter, prefetch
@@ -70,7 +81,7 @@ def _config(args) -> dict:
 
 def _pipeline(args, cfg: dict) -> ResShiftPipeline:
     pipe = ResShiftPipeline(cfg, dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                            device=args.device)
+                            device=mesh.process_device(args.device))
     if args.ckpt:
         pipe.load_torch_checkpoints(args.ckpt, args.vqgan_ckpt)
     else:
@@ -83,12 +94,17 @@ def _pipeline(args, cfg: dict) -> ResShiftPipeline:
 
 
 def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
-    """Restore every image under --in-path into --out-path as PNG; returns
-    the input files and the wall time."""
+    """Restore this process's share of the images under --in-path (every
+    world-th file from its rank) into --out-path as PNG; returns all the
+    input files and the wall time."""
     in_path, out_path = Path(args.in_path), Path(args.out_path)
     out_path.mkdir(parents=True, exist_ok=True)
-    files = list_images(in_path) if in_path.is_dir() else [in_path]
-    print(f"Found {len(files)} image(s) in {in_path}; sampling on {pipe.device}", flush=True)
+    all_files = list_images(in_path) if in_path.is_dir() else [in_path]
+    files = all_files[mesh.rank()::mesh.world_size()]
+    devices = mesh.local_devices() if pipe.device.type == "cuda" else [pipe.device]
+    print(f"Found {len(all_files)} image(s) in {in_path}; process {mesh.rank()} of "
+          f"{mesh.world_size()} restores {len(files)}, sampling on "
+          f"{', '.join(map(str, devices))}", flush=True)
     generator = torch.Generator(device=pipe.device).manual_seed(args.seed)
     bs = max(1, args.bs)
     masks = None
@@ -119,9 +135,17 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
                                                        next(iter(masks.values())), chn="gray"))
                                        for f, _ in group], axis=0)
             mask_t = None if mask is None else torch.from_numpy(mask)
-            if getattr(args, "time_parallel", 0) and max(lq.shape[1:3]) <= pipe.chop_size:
+            chopped = max(lq.shape[1:3]) > pipe.chop_size
+            if getattr(args, "time_parallel", 0) and not chopped:
                 # the Picard chain: the UNet runs SWEEPS times on a (T*B) batch
-                sr = pipe.sample_time_parallel(lq, generator, mask_t, sweeps=args.time_parallel)
+                sr = pipe.sample_time_parallel(lq, generator, mask_t, sweeps=args.time_parallel,
+                                               devices=devices)
+            elif len(devices) > 1 and lq.shape[0] > 1:
+                sr = pipe.sample_batch_sharded(lq, generator, devices, mask_t,
+                                               noise_repeat=args.noise_repeat,
+                                               tile_bs=args.chop_bs)
+            elif len(devices) > 1 and chopped:  # one big image: its tiles over the cards
+                sr = pipe.sample_tiles_sharded(lq, generator, devices, mask_t)
             else:
                 sr = pipe.sample(lq, generator, mask_t, noise_repeat=args.noise_repeat,
                                  tile_bs=args.chop_bs)
@@ -148,7 +172,9 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
     seconds = time.perf_counter() - t_start
     print(f"Done: {state['px'] / max(seconds, 1e-9) / 1e6:.3f} Mpx/s wall (compute + "
           f"pipelined I/O) -> {out_path}", flush=True)
-    return files, seconds
+    if mesh.world_size() > 1:  # every rank's outputs are written before rank 0 reports
+        torch.distributed.barrier()
+    return all_files, seconds
 
 
 def report_metrics(files, sr_dir: Path, gt_dir: Path, extra: dict | None = None,
@@ -199,7 +225,7 @@ def cmd_infer(args) -> None:
         cfg["inference"]["chop_stride"] = (args.chop_stride * (4 // cfg["sf"])
                                            if args.chop_stride else st)
     files, _ = _infer(_pipeline(args, cfg), args)
-    if args.gt_path:
+    if args.gt_path and mesh.rank() == 0:
         report_metrics(files, Path(args.out_path), Path(args.gt_path),
                        lpips_path=args.lpips_path, device=args.device)
 
@@ -215,7 +241,7 @@ def cmd_eval(args) -> None:
     args.mask_path, args.mask_back = None, False
     files, seconds = _infer(_pipeline(args, cfg), args)
     print(f"Protocol {args.protocol}: {len(files)} images in {seconds:.1f}s", flush=True)
-    if args.gt_path:
+    if args.gt_path and mesh.rank() == 0:
         report_metrics(files, Path(args.out_path), Path(args.gt_path),
                        extra={"protocol": args.protocol, "seconds": round(seconds, 1)},
                        lpips_path=args.lpips_path, device=args.device)
@@ -232,7 +258,7 @@ def cmd_train(args) -> None:
                          "paths")
     Trainer(cfg, save_dir=args.save_dir, resume=args.resume,
             dtype=torch.bfloat16 if args.bf16 else torch.float32, seed=args.seed,
-            device=args.device).train(handle_signals=True)
+            device=mesh.process_device(args.device)).train(handle_signals=True)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -259,6 +285,12 @@ def make_parser() -> argparse.ArgumentParser:
         sp.add_argument("--lpips-path", default=None,
                         help="LPIPS weights (.pth) for the metric report: adds LPIPS")
         sp.add_argument("--chop-bs", type=int, default=1, help="tiles per sampler call")
+        distributed(sp)
+
+    def distributed(sp):
+        sp.add_argument("--distributed", action="store_true",
+                        help="require the process group (torchrun's environment; brought up "
+                             "without this flag too wherever that names one)")
 
     pi = sub.add_parser("infer", help="restore a folder or a single image")
     common(pi)
@@ -295,12 +327,15 @@ def make_parser() -> argparse.ArgumentParser:
     pt.add_argument("--fp32", dest="bf16", action="store_false")
     pt.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions of the kernels")
+    distributed(pt)
     pt.set_defaults(fn=cmd_train)
     return p
 
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
+    # before any tensor reaches a card: the group binds this process to its own
+    mesh.maybe_init_distributed(force=args.distributed, device=args.device)
     args.fn(args)
 
 

@@ -23,7 +23,7 @@ __all__ = ["q_sample", "q_mean_variance", "q_posterior_mean_variance", "training
            "predict_xstart_from_eps_scale", "predict_xstart_from_residual",
            "predict_eps_from_xstart", "prior_sample", "p_mean_variance",
            "p_sample", "sample_loop", "sample_loop_parallel", "sample_loop_progressive",
-           "PMeanVariance"]
+           "chain_draws", "PMeanVariance"]
 
 # model_fn(x_scaled, t_original, **cond) -> model output; t_original is the
 # timestep after mapping through sched.timestep_map (respacing)
@@ -230,17 +230,18 @@ def sample_loop(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
     return x
 
 
-def _step_draws(sched: Schedule, z_y, generator, noise, noise_repeat):
-    """The prior draw and the T step draws (T, B, ...), taken from
-    `generator` in `sample_loop`'s order: the prior first, then step by
-    step."""
+def chain_draws(num_timesteps: int, shape, generator: torch.Generator | None,
+                device: str | torch.device, noise_repeat: bool = False, noise=None):
+    """The prior draw (`shape`) and the T step draws (T, *shape), taken from
+    `generator` in `sample_loop`'s order: the prior first (unless `noise` is
+    given), then step by step.  `noise_repeat` repeats sample 0's draws
+    across the batch, as `sample_loop` does."""
     if noise is None:
-        noise = torch.randn(z_y.shape, generator=generator, dtype=torch.float32,
-                            device=z_y.device)
+        noise = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
         if noise_repeat:
             noise = noise[:1].expand_as(noise)
-    eps = torch.stack([torch.randn(z_y.shape, generator=generator, dtype=torch.float32,
-                                   device=z_y.device) for _ in range(sched.num_timesteps)])
+    eps = torch.stack([torch.randn(shape, generator=generator, dtype=torch.float32,
+                                   device=device) for _ in range(num_timesteps)])
     if noise_repeat:
         eps = eps[:, :1].expand_as(eps)
     return noise, eps
@@ -251,7 +252,8 @@ def sample_loop_parallel(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
                          sweeps: int | None = None, noise: torch.Tensor | None = None,
                          step_noise: torch.Tensor | None = None, clip_denoised: bool = True,
                          model_kwargs: dict[str, Any] | None = None,
-                         noise_repeat: bool = False) -> torch.Tensor:
+                         noise_repeat: bool = False,
+                         shard_fn: ModelFn | None = None) -> torch.Tensor:
     """Time-parallel (Picard) reverse chain; returns the final latent.
 
     With the per-step draws fixed, the chain x_{j+1} = F_j(x_j) over
@@ -259,12 +261,18 @@ def sample_loop_parallel(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
     for every j at once, the denoiser running on a (T*B) batch.  After k
     sweeps the first k positions are exact, so `sweeps` = T gives
     `sample_loop`'s result; fewer trade accuracy for fewer denoiser calls
-    (default T // 3).  The draws come as `sample_loop` takes them."""
+    (default T // 3).  The draws come as `sample_loop` takes them.
+    `shard_fn`, where given, takes the sweep's denoiser call in place of
+    `model_fn` (the same arguments: the (T*B) batch, its timesteps, the
+    conditioning tiled T times) and spreads that batch over several cards
+    (`ResShiftPipeline.sample_time_parallel(devices=)`), as the JAX
+    package's `shard_fn` spreads it over its mesh."""
     model_kwargs = model_kwargs or {}
     t_steps, b = sched.num_timesteps, z_y.shape[0]
     sweeps = max(1, t_steps // 3) if sweeps is None else sweeps
     if step_noise is None:
-        noise, step_noise = _step_draws(sched, z_y, generator, noise, noise_repeat)
+        noise, step_noise = chain_draws(t_steps, z_y.shape, generator, z_y.device,
+                                        noise_repeat, noise)
     elif noise is None:
         raise ValueError("step_noise needs noise (the prior draw) too")
     x_t = prior_sample(sched, z_y, noise)
@@ -277,7 +285,8 @@ def sample_loop_parallel(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
     nz = (ts != 0).float().reshape((t_steps,) + (1,) * z_y.ndim)
     xs = x_t.unsqueeze(0).expand((t_steps + 1,) + x_t.shape)
     for _ in range(sweeps):
-        out = p_mean_variance(sched, model_fn, xs[:-1].reshape((t_steps * b,) + z_y.shape[1:]),
+        out = p_mean_variance(sched, shard_fn or model_fn,
+                              xs[:-1].reshape((t_steps * b,) + z_y.shape[1:]),
                               z_y_tiled, t_vec, clip_denoised=clip_denoised,
                               model_kwargs=tiled)
         mean = out.mean.reshape((t_steps,) + z_y.shape)

@@ -25,6 +25,14 @@ overlapping tile grid, their masks (inpainting) through the same grid.
   * `sample_time_parallel` (Picard sweeps over the whole chain) and
     `sample_progressive` (every step's x0 prediction, decoded) take inputs
     that fit one tile.
+  * Several cards of one process (the JAX package's single-host mesh):
+    `sample_batch_sharded` splits the image batch over `devices`,
+    `sample_tiles_sharded` one image's tile grid, and
+    `sample_time_parallel(devices=)` the Picard sweep's (T*B) batch.  Each
+    card runs a replica of the models (cast once per card, like the
+    pipeline's own) and the schedule; the noise is drawn whole on the
+    pipeline's device in `sample`'s order (`chain_draws`) and each shard
+    takes its rows, so a sharded call draws what `sample` would.
 
 The pipeline runs on CUDA unless the caller passes `device="cpu"`; without
 CUDA and without that argument it raises.  Images are NHWC float32 in
@@ -34,6 +42,7 @@ CUDA and without that argument it raises.  Images are NHWC float32 in
 from __future__ import annotations
 
 import copy
+import dataclasses
 import math
 import os
 
@@ -50,6 +59,7 @@ from .models.unet import UNetModelSwin
 from .models.vqgan import VQModel
 from .ops.resize import resize
 from .ops.tiling import TileGrid
+from .parallel.mesh import local_devices
 
 __all__ = ["ResShiftPipeline", "load_pth", "resolve_device"]
 
@@ -61,6 +71,26 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
         raise RuntimeError("CUDA is not available; pass device='cpu' to run the plain "
                            "PyTorch versions on the CPU")
     return device
+
+
+def _card(device: torch.device) -> torch.device:
+    """`device` with the current card's index where a CUDA device has none
+    (the key its replicas are cached under)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _replicas(devices: list) -> list[tuple[torch.device, int]]:
+    """(card, slot) for each entry of a sharded call's `devices`: a card
+    listed k times gets k replicas, slots 0 to k - 1."""
+    seen: dict[torch.device, int] = {}
+    out = []
+    for d in devices:
+        d = _card(torch.device(d))
+        out.append((d, seen.get(d, 0)))
+        seen[d] = out[-1][1] + 1
+    return out
 
 
 @torch.no_grad()
@@ -157,7 +187,8 @@ class ResShiftPipeline:
         self.lq_multiple = need // math.gcd(need, self.sf)
         self.chop_size = int(inf.get("chop_size", 512))
         self.chop_stride = int(inf.get("chop_stride", 448))
-        self._compute = None
+        self._compute = None  # (card, slot) -> the models cast to the compute dtype
+        self._scheds: dict = {}
 
     # ------------------------------------------------------------ params
 
@@ -188,13 +219,22 @@ class ResShiftPipeline:
                 load_pth(mod, path)
         self._compute = None
 
-    def _compute_params(self) -> tuple[nn.Module, nn.Module | None]:
+    def _compute_params(self, device: torch.device | None = None, slot: int = 0
+                        ) -> tuple[nn.Module, nn.Module | None]:
         """Copies of the models with every conv and linear weight cast to the
         compute dtype once, except the UNet head conv (`out.2`), which runs
-        in float32; GroupNorm, the rel-pos tables and the codebook stay f32."""
+        in float32; GroupNorm, the rel-pos tables and the codebook stay f32.
+        On `device` (the pipeline's by default): one replica per card and
+        `slot` (a further replica on a card that a sharded call lists more
+        than once), made at its first use and dropped with the others
+        whenever the weights change."""
+        home = (_card(self.device), 0)
+        key = (home[0] if device is None else _card(torch.device(device)), slot)
         if self._compute is None:
+            self._compute = {}
+        if home not in self._compute:
             if self.dtype == torch.float32:
-                self._compute = (self.unet, self.vq)
+                self._compute[home] = (self.unet, self.vq)
             else:
                 def cast(mod):
                     mod = copy.deepcopy(mod)
@@ -203,8 +243,25 @@ class ResShiftPipeline:
                             sub.to(self.dtype)
                     return mod
 
-                self._compute = (cast(self.unet), None if self.vq is None else cast(self.vq))
-        return self._compute
+                self._compute[home] = (cast(self.unet),
+                                       None if self.vq is None else cast(self.vq))
+        if key not in self._compute:
+            self._compute[key] = tuple(None if m is None else copy.deepcopy(m).to(key[0])
+                                       for m in self._compute[home])
+        return self._compute[key]
+
+    def _schedule(self, device: torch.device):
+        """The schedule's tensors on `device` (the pipeline's own schedule on
+        its device)."""
+        device = _card(device)
+        if device == _card(self.device):
+            return self.sched
+        if device not in self._scheds:
+            self._scheds[device] = dataclasses.replace(self.sched, **{
+                f.name: getattr(self.sched, f.name).to(device)
+                for f in dataclasses.fields(self.sched)
+                if isinstance(getattr(self.sched, f.name), torch.Tensor)})
+        return self._scheds[device]
 
     # ------------------------------------------------------------- core
 
@@ -235,26 +292,33 @@ class ResShiftPipeline:
             return {"lq_feat": unet(None, None, lq=lq, mask=mask, features_only=True)}
         return {"lq": lq} if mask is None else {"lq": lq, "mask": mask}
 
+    def _latent_shape(self, b: int, h: int, w: int, c: int) -> tuple[int, int, int, int]:
+        """The chain's shape for b LQ images (tiles) of h x w x c: the VQGAN
+        latent (the UNet's input channels under DDPM, pure noise there), or
+        the upsampled image where there is no VQGAN."""
+        ch = (self.config["model"].get("in_channels", 3) if self.variant == "ddpm"
+              else c if self.vq is None else self.vq.quantize.e_dim)
+        return b, h * self.sf // self.f, w * self.sf // self.f, ch
+
     def _ddpm_chain(self, unet, lq, generator, model_kwargs, noise, step_noise):
         """The DDPM or DDIM chain from pure noise at the latent shape."""
-        b, h, w, _ = lq.shape
-        shape = (b, h * self.sf // self.f, w * self.sf // self.f,
-                 self.config["model"].get("in_channels", 3))
+        shape = self._latent_shape(*lq.shape)
         kw = dict(noise=noise, step_noise=step_noise, clip_denoised=self.vq is None,
-                  model_kwargs=model_kwargs, device=self.device)
+                  model_kwargs=model_kwargs, device=lq.device)
+        sched = self._schedule(lq.device)
         if self.ddpm_sampler == "ddim":
-            return ddpm.ddim_sample_loop(self.sched, unet, shape, generator, eta=self.ddpm_eta,
-                                         **kw)
-        return ddpm.p_sample_loop(self.sched, unet, shape, generator, **kw)
+            return ddpm.ddim_sample_loop(sched, unet, shape, generator, eta=self.ddpm_eta, **kw)
+        return ddpm.p_sample_loop(sched, unet, shape, generator, **kw)
 
     @torch.no_grad()
     def _sample_tile(self, lq: torch.Tensor, generator: torch.Generator | None, mask=None,
                      noise_repeat: bool = False, noise: torch.Tensor | None = None,
-                     step_noise: torch.Tensor | None = None) -> torch.Tensor:
-        """One (padded) tile batch.  `noise` / `step_noise` fix the Gaussian
-        draws as the chain takes them; otherwise they come from
+                     step_noise: torch.Tensor | None = None, slot: int = 0) -> torch.Tensor:
+        """One (padded) tile batch, on the card that `lq` lies on (that
+        card's replica `slot` of the models).  `noise` / `step_noise` fix
+        the Gaussian draws as the chain takes them; otherwise they come from
         `generator`, the prior (or x_T) draw first."""
-        unet, vq = self._compute_params()
+        unet, vq = self._compute_params(lq.device, slot)
         if self.variant == "ddpm":
             if noise_repeat:
                 raise ValueError("noise_repeat is not defined for diffusion.variant ddpm")
@@ -267,24 +331,24 @@ class ResShiftPipeline:
                                 device=z_y.device)
             if noise_repeat:
                 noise = noise[:1].expand_as(noise)
-        z0 = rs.sample_loop(self.sched, unet, z_y, generator, noise=noise,
+        z0 = rs.sample_loop(self._schedule(lq.device), unet, z_y, generator, noise=noise,
                             clip_denoised=vq is None,
                             model_kwargs=self._cond_kwargs(unet, lq, mask),
                             noise_repeat=noise_repeat, step_noise=step_noise)
         return self._decode(vq, z0).clamp(-1.0, 1.0)
 
+    def _padded(self, n: int, chop_size: int) -> int:
+        """A side of n LQ pixels padded to a multiple of the padding offset,
+        and on to one of `lq_multiple` where it stays within `chop_size`."""
+        p = math.ceil(n / self.padding_offset) * self.padding_offset
+        mult = self.lq_multiple
+        return math.ceil(n / mult) * mult if p <= chop_size and p % mult else p
+
     def _pad(self, lq, mask, chop_size):
-        """Reflect-pad `lq` (and `mask`) to a multiple of the padding offset;
-        a side that stays within `chop_size` (not tiled) on to a multiple of
-        `lq_multiple`.  Returns the padded pair."""
+        """Reflect-pad `lq` (and `mask`) to `_padded`'s size.  Returns the
+        padded pair."""
         _, h, w, _ = lq.shape
-        offset, mult = self.padding_offset, self.lq_multiple
-
-        def padded(n):
-            p = math.ceil(n / offset) * offset
-            return math.ceil(n / mult) * mult if p <= chop_size and p % mult else p
-
-        hp, wp = padded(h), padded(w)
+        hp, wp = self._padded(h, chop_size), self._padded(w, chop_size)
 
         def pad(t):
             t = t.permute(0, 3, 1, 2)
@@ -297,29 +361,63 @@ class ResShiftPipeline:
 
         return pad(lq), None if mask is None else pad(mask)
 
+    def _chunks(self, b: int, h: int, w: int, chop_size: int, chop_stride: int,
+                tile_bs: int):
+        """How `sample` cuts b padded h x w images: (grid or None when not
+        tiled, the tile batches' sizes, the tile's h and w)."""
+        if h <= chop_size and w <= chop_size:
+            return None, [b], (h, w)
+        grid = TileGrid(h, w, chop_size, chop_stride, sf=self.sf)
+        t_total = grid.num_tiles * b
+        tile_bs = max(1, min(int(tile_bs), t_total))
+        return (grid, [min(tile_bs, t_total - i) for i in range(0, t_total, tile_bs)],
+                grid.tile_hw)
+
+    def chain_draws(self, lq_shape, generator: torch.Generator, *, noise_repeat: bool = False,
+                    chop_size: int | None = None, chop_stride: int | None = None,
+                    tile_bs: int = 1):
+        """The Gaussian draws that `sample` takes from `generator` for an
+        input of `lq_shape` (B, H, W, C) under these arguments: (noise
+        (N, ...), step noise (T, N, ...)) over its N tiles in `sample`'s
+        order (tile-major; the images where it does not tile), drawn on the
+        generator's device tile batch by tile batch, each the prior first,
+        then step by step.  `sample(..., draws=)` takes them back."""
+        chop_size, chop_stride = chop_size or self.chop_size, chop_stride or self.chop_stride
+        b, h, w, c = lq_shape
+        _, sizes, (th, tw) = self._chunks(b, self._padded(h, chop_size),
+                                          self._padded(w, chop_size), chop_size, chop_stride,
+                                          tile_bs)
+        if noise_repeat and self.variant == "ddpm":
+            raise ValueError("noise_repeat is not defined for diffusion.variant ddpm")
+        parts = [rs.chain_draws(self.sched.num_timesteps, self._latent_shape(n, th, tw, c),
+                                generator, generator.device, noise_repeat) for n in sizes]
+        return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts], dim=1))
+
     def _sample_padded(self, lq, generator, mask, noise_repeat, chop_size, chop_stride,
-                       tile_bs):
-        """Pad -> (maybe tile) -> sample -> crop.  A side longer than the
-        chop size is cut into chop-sized tiles; a shorter one stays whole
-        and is padded on to a multiple of `lq_multiple`."""
+                       tile_bs, draws=None, slot=0):
+        """Pad -> (maybe tile) -> sample -> crop, on replica `slot` of the
+        card that `lq` lies on.  A side longer than the chop size is cut
+        into chop-sized tiles; a shorter one stays whole and is padded on to
+        a multiple of `lq_multiple`.  `draws` (as `chain_draws` gives them)
+        replace the generator's."""
         b, h, w, c = lq.shape
         lq, mask = self._pad(lq, mask, chop_size)
         hp, wp = lq.shape[1:3]
-        if hp <= chop_size and wp <= chop_size:
-            out = self._sample_tile(lq, generator, mask, noise_repeat)
-        else:
-            grid = TileGrid(hp, wp, chop_size, chop_stride, sf=self.sf)
-            tiles = grid.split(lq)
-            mtiles = None if mask is None else grid.split(mask)
-            t_total = grid.num_tiles * b
-            tile_bs = max(1, min(int(tile_bs), t_total))
-            outs = []
-            for i in range(0, t_total, tile_bs):
-                sl = slice(i, i + tile_bs)
-                outs.append(self._sample_tile(tiles[sl], generator,
-                                              None if mtiles is None else mtiles[sl],
-                                              noise_repeat))
-            out = grid.gather(torch.cat(outs, dim=0), b)
+        grid, sizes, _ = self._chunks(b, hp, wp, chop_size, chop_stride, tile_bs)
+        tiles = lq if grid is None else grid.split(lq)
+        mtiles = mask if grid is None or mask is None else grid.split(mask)
+        outs, i = [], 0
+        for n in sizes:
+            sl = slice(i, i + n)
+            kw = {} if draws is None else dict(noise=draws[0][sl].to(lq.device),
+                                               step_noise=draws[1][:, sl].to(lq.device))
+            if slot:
+                kw["slot"] = slot
+            outs.append(self._sample_tile(tiles[sl], generator,
+                                          None if mtiles is None else mtiles[sl], noise_repeat,
+                                          **kw))
+            i += n
+        out = outs[0] if grid is None else grid.gather(torch.cat(outs, dim=0), b)
         return out[:, :h * self.sf, :w * self.sf, :]
 
     def _one_tile(self, lq, generator, mask):
@@ -339,21 +437,46 @@ class ResShiftPipeline:
                              f"sampler takes one tile")
         return lq, mask, generator, (slice(None), slice(0, h * self.sf), slice(0, w * self.sf))
 
+    def _spread(self, devices: list[torch.device]):
+        """A denoiser call that cuts its batch (and its conditioning) into
+        len(devices) parts, runs each on its own replica (`_replicas`), one
+        after another, and gathers the outputs on the pipeline's device."""
+        replicas = [(d, self._compute_params(d, s)[0]) for d, s in _replicas(devices)]
+
+        def model_fn(x, t, **kw):
+            n = len(devices)
+            xs, ts = torch.tensor_split(x, n), torch.tensor_split(t, n)
+            kws = [{k: v for k, v in zip(kw, vals)}
+                   for vals in zip(*(torch.tensor_split(v, n) for v in kw.values()))] or [{}] * n
+            outs = [unet(xp.to(d), tp.to(d), **{k: v.to(d) for k, v in kp.items()})
+                    for (d, unet), xp, tp, kp in zip(replicas, xs, ts, kws)]
+            return torch.cat([o.to(x.device) for o in outs])
+
+        return model_fn
+
     @torch.no_grad()
     def sample_time_parallel(self, lq: torch.Tensor, generator: torch.Generator | None = None,
                              mask: torch.Tensor | None = None, *,
-                             sweeps: int | None = None) -> torch.Tensor:
+                             sweeps: int | None = None,
+                             devices: list | None = None) -> torch.Tensor:
         """`sample` with the reverse chain run as Picard sweeps
         (`rs.sample_loop_parallel`): the UNet runs `sweeps` times on a
         (T*B) batch instead of T times on B.  The draws are taken as
         `sample` takes them, so `sweeps` = T gives `sample`'s result with
-        the same seed; the default is T // 3.  The input must fit one tile."""
+        the same seed; the default is T // 3.  The input must fit one tile.
+        With two or more `devices` each sweep's (T*B) batch is cut over
+        them, one part a replica (`_spread`), and gathered back; the
+        encode, the decode and the chain's update stay on the pipeline's
+        device."""
         lq, mask, generator, crop = self._one_tile(lq, generator, mask)
         unet, vq = self._compute_params()
         z_y = self._encode(vq, lq)
+        shard_fn = (None if devices is None or len(devices) < 2
+                    else self._spread([torch.device(d) for d in devices]))
         z0 = rs.sample_loop_parallel(self.sched, unet, z_y, generator, sweeps=sweeps,
                                      clip_denoised=vq is None,
-                                     model_kwargs=self._cond_kwargs(unet, lq, mask))
+                                     model_kwargs=self._cond_kwargs(unet, lq, mask),
+                                     shard_fn=shard_fn)
         return self._decode(vq, z0).clamp(-1.0, 1.0)[crop]
 
     @torch.no_grad()
@@ -376,17 +499,107 @@ class ResShiftPipeline:
     def sample(self, lq: torch.Tensor, generator: torch.Generator | None = None,
                mask: torch.Tensor | None = None, *, noise_repeat: bool = False,
                chop_size: int | None = None, chop_stride: int | None = None,
-               tile_bs: int = 1) -> torch.Tensor:
+               tile_bs: int = 1, draws: tuple | None = None) -> torch.Tensor:
         """SR / restore a batch of LQ images, (B, H, W, 3) in [-1, 1] ->
         (B, H*sf, W*sf, 3).  `mask` (B, H, W, 1) in [-1, 1] is the
         inpainting mask (1 where the image is to be filled), for the models
         with `cond_mask`.  Noise comes from `generator` (a fresh one seeded
-        0 on the pipeline's device when None)."""
-        if generator is None:
+        0 on the pipeline's device when None), or is `draws`, as
+        `chain_draws` gives them for the same arguments."""
+        if generator is None and draws is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
         lq = lq.to(self.device, torch.float32)
         if mask is not None:
             mask = mask.to(self.device, torch.float32)
         return self._sample_padded(lq, generator, mask, noise_repeat,
                                    chop_size or self.chop_size, chop_stride or self.chop_stride,
-                                   tile_bs)
+                                   tile_bs, draws)
+
+    def _inputs(self, lq, mask, generator, devices):
+        """The sharded samplers' inputs on the pipeline's device, their
+        generator and their cards (this process's own by default)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        devices = local_devices() if devices is None else [torch.device(d) for d in devices]
+        lq = lq.to(self.device, torch.float32)
+        mask = None if mask is None else mask.to(self.device, torch.float32)
+        return lq, mask, generator, devices
+
+    @torch.no_grad()
+    def sample_batch_sharded(self, lq: torch.Tensor, generator: torch.Generator | None = None,
+                             devices: list | None = None, mask: torch.Tensor | None = None, *,
+                             noise_repeat: bool = False, chop_size: int | None = None,
+                             chop_stride: int | None = None, tile_bs: int = 1) -> torch.Tensor:
+        """`sample` with the image batch split over `devices` (this process's
+        cards by default): the batch is padded to a multiple of their count
+        by repeating the last image, and cropped back.  The whole padded
+        batch's draws are taken from `generator` as `sample` would take them
+        (`chain_draws`) and each card gets its images' rows, so that each
+        shard is `sample` of its images with those draws, and the result is
+        `sample`'s up to the rounding of a smaller batch.  Each entry of
+        `devices` is a replica of its own (`_replicas`: a card listed twice
+        holds two); the shards run one after another on this thread, each
+        launching on its card while the cards before it compute."""
+        lq, mask, generator, devices = self._inputs(lq, mask, generator, devices)
+        chop_size, chop_stride = chop_size or self.chop_size, chop_stride or self.chop_stride
+        b, n = lq.shape[0], len(devices)
+        pad = (-b) % n
+        if pad:
+            lq = torch.cat([lq, lq[-1:].expand(pad, *lq.shape[1:])])
+            if mask is not None:
+                mask = torch.cat([mask, mask[-1:].expand(pad, *mask.shape[1:])])
+        noise, eps = self.chain_draws(lq.shape, generator, noise_repeat=noise_repeat,
+                                      chop_size=chop_size, chop_stride=chop_stride,
+                                      tile_bs=tile_bs)
+        per, big = lq.shape[0] // n, lq.shape[0]
+        n_tiles = noise.shape[0] // big  # tile-major rows: tile j of image i is j * big + i
+        outs = []
+        for s, (dev, slot) in enumerate(_replicas(devices)):
+            rows = (torch.arange(n_tiles)[:, None] * big + s * per
+                    + torch.arange(per)[None]).reshape(-1).to(noise.device)
+            part = slice(s * per, (s + 1) * per)
+            outs.append(self._sample_padded(
+                lq[part].to(dev), None, None if mask is None else mask[part].to(dev),
+                noise_repeat, chop_size, chop_stride, tile_bs,
+                draws=(noise[rows].to(dev), eps[:, rows].to(dev)), slot=slot))
+        return torch.cat([o.to(self.device) for o in outs])[:b]
+
+    @torch.no_grad()
+    def sample_tiles_sharded(self, lq: torch.Tensor, generator: torch.Generator | None = None,
+                             devices: list | None = None, mask: torch.Tensor | None = None, *,
+                             chop_size: int | None = None,
+                             chop_stride: int | None = None) -> torch.Tensor:
+        """`sample(..., tile_bs=<every tile>)` with the tile batch split over
+        `devices` (this process's cards by default): the input is padded as
+        `sample` pads it and cut by the same grid, the tile count padded to a
+        multiple of the cards' by repeating the first tiles, each card
+        samples its tiles with their rows of the draws `sample` would take
+        (`chain_draws`), and the overlap gather runs on the pipeline's
+        device.  The result is `sample`'s up to the rounding of a smaller
+        batch; the replicas and the order of the shards are
+        `sample_batch_sharded`'s."""
+        lq, mask, generator, devices = self._inputs(lq, mask, generator, devices)
+        chop_size, chop_stride = chop_size or self.chop_size, chop_stride or self.chop_stride
+        b, h, w, _ = lq.shape
+        lqp, maskp = self._pad(lq, mask, chop_size)
+        hp, wp = lqp.shape[1:3]
+        grid = TileGrid(hp, wp, chop_size, chop_stride, sf=self.sf)
+        tiles = grid.split(lqp)
+        mtiles = None if maskp is None else grid.split(maskp)
+        t_total, n = tiles.shape[0], len(devices)
+        noise, eps = self.chain_draws(lq.shape, generator, chop_size=chop_size,
+                                      chop_stride=chop_stride, tile_bs=t_total)
+        pad = (-t_total) % n
+        if pad:
+            rep = lambda t, dim=0: torch.cat([t, t.narrow(dim, 0, pad)], dim=dim)
+            tiles, noise, eps = rep(tiles), rep(noise), rep(eps, 1)
+            mtiles = None if mtiles is None else rep(mtiles)
+        per = tiles.shape[0] // n
+        outs = []
+        for s, (dev, slot) in enumerate(_replicas(devices)):
+            part = slice(s * per, (s + 1) * per)
+            outs.append(self._sample_tile(
+                tiles[part].to(dev), None, None if mtiles is None else mtiles[part].to(dev),
+                noise=noise[part].to(dev), step_noise=eps[:, part].to(dev), slot=slot))
+        out = torch.cat([o.to(self.device) for o in outs])[:t_total]
+        return grid.gather(out, b)[:, :h * self.sf, :w * self.sf, :]

@@ -27,8 +27,16 @@ body size, 500 with a JSON error on a body that does not decode.  The
 accept backlog is 512, so a burst is answered with 429 rather than reset
 by the kernel.
 
-Not ported: data parallelism over several cards (`--dp`) and the int8
-VQGAN (`--quant-vqgan int8`) raise `NotImplementedError`.
+Several cards (`--dp`, `Predictor(data_parallel=True)`; on by default
+where the process owns more than one): each dispatched batch is split over
+the cards (`ResShiftPipeline.sample_batch_sharded`), a single image larger
+than the chop size has its tile grid split instead (`sample_tiles_sharded`),
+and `max_batch` is raised to at least the card count.  The draws are those
+of `sample` on the same batch, so the images are `sample`'s up to the
+rounding of a smaller batch.
+
+Not ported: the int8 VQGAN (`--quant-vqgan int8`) raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -82,7 +90,9 @@ class Predictor:
     threads: calls go through the device-worker thread and are batched.
 
     `task` is a task name or a config dict; without `ckpt` the weights are
-    random (seed 0).  `device` is the pipeline's ("cuda" by default)."""
+    random (seed 0).  `device` is the pipeline's ("cuda" by default).
+    `data_parallel` splits each batch over `devices` (this process's cards
+    by default); None turns it on where there are two or more."""
 
     def __init__(self, task: str | dict = "realsr_v3", ckpt: str | None = None,
                  vqgan_ckpt: str | None = None, seed: int = 12345, bf16: bool = True,
@@ -90,13 +100,22 @@ class Predictor:
                  quant_vqgan: str | None = None, data_parallel: bool | None = None,
                  max_queue: int = 64, request_timeout_s: float | None = 300.0,
                  chop_size: int | None = None, chop_stride: int | None = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", devices: list | None = None):
         if quant_vqgan is not None:
             raise NotImplementedError("the int8 VQGAN is not ported")
-        if data_parallel:
-            raise NotImplementedError("serving over several cards is not ported")
         if ckpt and not str(ckpt).endswith(".pth"):
             raise ValueError("the port loads the released .pth checkpoints only")
+        if data_parallel is not False:
+            import torch
+
+            from .parallel.mesh import local_devices
+
+            devices = (local_devices() if devices is None and device != "cpu"
+                       else [torch.device(d) for d in devices or [device]])
+        # the cards a batch is split over, or None: one card
+        self.devices = devices if data_parallel is not False and len(devices) > 1 else None
+        if self.devices is not None:  # a whole row of cards per dispatch
+            max_batch = max(int(max_batch), len(self.devices))
         self.chop_bs = chop_bs
         self.max_batch = max(1, int(max_batch))
         self.batch_window_s = float(batch_window_s)
@@ -319,9 +338,17 @@ class Predictor:
                     if mask is not None:
                         mask = np.concatenate([mask, np.repeat(mask[-1:], pad, 0)], 0)
                 t0 = time.perf_counter()
-                out = self.pipe.sample(torch.from_numpy(lq), self._generator,
-                                       None if mask is None else torch.from_numpy(mask),
-                                       tile_bs=self.chop_bs)
+                lq_t, mask_t = (None if a is None else torch.from_numpy(a) for a in (lq, mask))
+                chopped = max(lq.shape[1:3]) > self.pipe.chop_size
+                if self.devices is not None and lq.shape[0] == 1 and chopped:
+                    # one big image: its tile grid is split over the cards
+                    out = self.pipe.sample_tiles_sharded(lq_t, self._generator, self.devices,
+                                                         mask_t)
+                elif self.devices is not None:
+                    out = self.pipe.sample_batch_sharded(lq_t, self._generator, self.devices,
+                                                         mask_t, tile_bs=self.chop_bs)
+                else:
+                    out = self.pipe.sample(lq_t, self._generator, mask_t, tile_bs=self.chop_bs)
                 sr = from_model(out[:n].float().cpu().numpy())  # waits for the device
                 self._lat.append(time.perf_counter() - t0)
                 self._n_done += n
@@ -548,7 +575,8 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--quant-vqgan", default=None, choices=["int8"],
                    help="the int8 VQGAN: not ported (raises)")
     p.add_argument("--dp", dest="data_parallel", action="store_true", default=None,
-                   help="batches over several cards: not ported (raises)")
+                   help="split each batch over this process's cards (default: on where it "
+                        "owns two or more)")
     p.add_argument("--no-dp", dest="data_parallel", action="store_false")
     p.add_argument("--chop-size", type=int, default=None, choices=[512, 256, 64],
                    help="tile size for big inputs (default: the task config's)")

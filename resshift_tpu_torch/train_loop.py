@@ -1,6 +1,6 @@
 """The training loop around `trainer.TrainStep`: data, degradation,
 logging, validation, checkpoints (the port's counterpart of the JAX
-package's `train_loop.py`, on one card).
+package's `train_loop.py`), on one card or one process per card.
 
 Per iteration: a batch from the host loader -> the RealESRGAN degradation
 on the device (realesrgan data) or the batch as it is -> the train step ->
@@ -13,16 +13,28 @@ checkpoint, and a blocking one at the end.
 
 Randomness is indexed by the step: each iteration's draws come from
 `step_generator(seed, step, rank, stream)` (stream 1: the degradation's
-noise, rank folded in; 2: the step's t and noise; 3: the image grids), so
-that a resumed run draws what the uninterrupted one would.  With paired
+noise; 2: the step's t and noise; 3: the image grids), the rank folded in
+as the JAX package folds `process_index`, so that a resumed run draws what
+the uninterrupted one would and no two ranks draw the same.  With paired
 data (no draws of the dataset's own) a resume continues bit for bit on the
 CPU; the degrader's host draws (`np_rng`) and its queue restart, as in the
 JAX package.
 
+Several processes (`torchrun --nproc-per-node N -m resshift_tpu_torch.cli
+train ...`): the process group comes up before the pipeline, on
+`cuda:LOCAL_RANK` (`parallel.mesh`); the loader takes every N-th item of
+each epoch's order from the rank's offset (`shard_id=rank`); the step
+averages the gradients over the ranks, or shards the state (`train.fsdp`,
+`trainer.TrainStep`).  Rank 0 alone writes the JSON log, the image grids,
+validation's files and the checkpoints; every rank joins the gathers of an
+FSDP state that those need.  Validation runs on every rank, each restoring
+every N-th val item from its rank's offset, and the metrics' sums are
+all-reduced (so no rank waits in a collective while another validates the
+whole set); one process owning several cards splits its batches over them.
+
 Pretrained weights: `model.ckpt_path` warm-starts the denoiser and
 `autoencoder.ckpt_path` loads the frozen VQGAN, both `.pth` files (an
-orbax directory raises: `checkpoint.load_params`).  FSDP raises
-NotImplementedError (ROADMAP.md section 1).
+orbax directory raises: `checkpoint.load_params`).
 
 The LPIPS trainer (`trainer: difir_lpips`, or `train.use_lpips`) adds the
 LPIPS term to the step's loss (`trainer.TrainStep`) and `val_lpips` to
@@ -50,6 +62,7 @@ from .data.realesrgan import DegradationConfig, RealESRGANDegrader
 from .diffusion import resshift as rs
 from .models.lpips import load_lpips
 from .ops.metrics import batch_psnr, batch_ssim
+from .parallel.mesh import full_tensor, local_devices, rank, world_size
 from .pipeline import ResShiftPipeline, load_pth
 from .trainer import TrainConfig, TrainStep
 from .utils.image_io import from_model, imwrite, make_grid
@@ -99,16 +112,19 @@ class Trainer:
     """One training run: the pipeline (random weights from `seed`, or the
     config's `.pth` warm starts), its `TrainStep`, the loader and the
     degrader, writing under `save_dir`; `resume` names a checkpoint to
-    continue.  `device` as the pipeline takes it (CUDA unless "cpu")."""
+    continue.  `device` as the pipeline takes it (CUDA unless "cpu"); the
+    rank and the world size are the process group's (0 and 1 without one)."""
 
     def __init__(self, config: dict, save_dir: str = "./save_dir", resume: str | None = None,
                  dtype: torch.dtype = torch.float32, seed: int = 123456,
-                 device: str | torch.device | None = None, rank: int = 0):
+                 device: str | torch.device | None = None):
         self.config = config
         self.save_dir = Path(save_dir)
-        self.seed, self.rank = seed, rank
-        for sub in ("ckpts", "images/train", "images/val"):
-            (self.save_dir / sub).mkdir(parents=True, exist_ok=True)
+        self.seed, self.rank, self.world = seed, rank(), world_size()
+        self.rank0 = self.rank == 0
+        if self.rank0:
+            for sub in ("ckpts", "images/train", "images/val"):
+                (self.save_dir / sub).mkdir(parents=True, exist_ok=True)
         traw = dict(config.get("train") or {})
         self.tcfg = TrainConfig.from_config(config)
         b = traw.get("batch", 16)
@@ -139,16 +155,18 @@ class Trainer:
         self.loader = None
         if train_cfg:
             self.loader = DataLoader(create_dataset(train_cfg), batch_size=self.batch,
-                                     shuffle=True, seed=seed, shard_id=rank, num_shards=1,
+                                     shuffle=True, seed=seed, shard_id=self.rank,
+                                     num_shards=self.world,
                                      num_workers=int(traw.get("num_workers", 0)))
         self.val_cfg = dcfg.get("val")
         self.degrader = None
         if self.train_type == "realesrgan":
             self.degrader = RealESRGANDegrader(
                 DegradationConfig.from_dict(dict(config.get("degradation") or {})))
-        self.np_rng = np.random.default_rng(seed + rank)
+        self.np_rng = np.random.default_rng(seed + self.rank)
         self.start_iter = 0
         self.timings: list[dict] = []  # per iteration: loader, degrader and step ms
+        self.val_items: list[int] = []  # the val items this rank restored last
         self._saver: AsyncSaver | None = None
         self._val_pipe: ResShiftPipeline | None = None
         if resume:
@@ -157,16 +175,15 @@ class Trainer:
     def _build_lpips(self, path: str | None):
         """The frozen LPIPS(vgg) of the loss and of validation, in the
         compute dtype on the device."""
-        if not path:
+        if not path and self.rank0:
             print("WARNING: LPIPS enabled without train.lpips_path — using RANDOM weights "
                   "(tests/smoke only)", flush=True)
         return load_lpips(path or None, dtype=self.dtype, device=self.device)
 
     # ------------------------------------------------------------ the loop
 
-    def _gen(self, it: int, stream: int, rank: int | None = None) -> torch.Generator:
-        return step_generator(self.seed, it, self.rank if rank is None else rank, stream,
-                              self.device)
+    def _gen(self, it: int, stream: int) -> torch.Generator:
+        return step_generator(self.seed, it, self.rank, stream, self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -207,14 +224,14 @@ class Trainer:
             batch = self.prepare_batch(raw, self._gen(it, 1))
             self._sync()
             t_c = time.perf_counter()
-            metrics = self.train_step(batch, self._gen(it, 2, rank=0))
+            metrics = self.train_step(batch, self._gen(it, 2))
             self._sync()
             t_d = time.perf_counter()
             it += 1
             ms = {"loader_ms": (t_b - t_a) * 1e3, "degrade_ms": (t_c - t_b) * 1e3,
                   "step_ms": (t_d - t_c) * 1e3}
             self.timings.append({"iter": it, **ms})
-            if it % int(self.log_freq[0]) == 0:
+            if self.rank0 and it % int(self.log_freq[0]) == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m.update(iter=it, ips=int(self.log_freq[0]) / (time.time() - t0), **ms)
                 t0 = time.time()
@@ -223,15 +240,18 @@ class Trainer:
                 print(f"[{it}/{self.tcfg.iterations}] " +
                       " ".join(f"{k}={v:.4g}" for k, v in m.items() if k != "iter"), flush=True)
             if len(self.log_freq) > 1 and it % int(self.log_freq[1]) == 0:
-                self.log_train_images(it, batch, self._gen(it, 3))
+                self.step_fn.sync_pipe()
+                if self.rank0:
+                    self.log_train_images(it, batch, self._gen(it, 3))
             if self.val_cfg and it % self.val_freq == 0:
                 self.validate(it)
             if it % self.save_freq == 0:
                 self.save(it, block=False)
             if stop_requested():
                 self.save(it)
-                print(f"[signal] stopped cleanly at step {it}; resume from "
-                      f"{self.save_dir / 'ckpts'}/step_{it:08d}", flush=True)
+                if self.rank0:
+                    print(f"[signal] stopped cleanly at step {it}; resume from "
+                          f"{self.save_dir / 'ckpts'}/step_{it:08d}", flush=True)
                 return self.step_fn
         self.save(it)
         return self.step_fn
@@ -264,32 +284,41 @@ class Trainer:
 
     # ------------------------------------------------------------ validation
 
-    def _val_pipeline(self) -> ResShiftPipeline:
+    def _val_pipeline(self, ema: dict) -> ResShiftPipeline:
         """A pipeline of its own for the EMA weights: `load_state_dicts`
         resets its cast copies, so `sample` never runs stale weights."""
         if self._val_pipe is None:
             self._val_pipe = ResShiftPipeline(self.config, dtype=self.dtype, device=self.device)
         vq = None if self.pipe.vq is None else self.pipe.vq.state_dict()
-        self._val_pipe.load_state_dicts(unet=self.step_fn.ema, vqgan=vq)
+        self._val_pipe.load_state_dicts(unet=ema, vqgan=vq)
         return self._val_pipe
 
     def validate(self, it: int, max_images: int | None = None):
-        """The reverse chain on the val set with the EMA weights; PSNR / SSIM
-        (Y) against the GT where there is one (and LPIPS, one batched call a
-        shape group, for the LPIPS trainer), appended to the JSON log; the
-        first image's restoration and progressive strip under images/val.
-        `train.val_max_images` bounds the set.  Returns (psnr, ssim) or None."""
+        """The reverse chain on the val set with the EMA weights (gathered
+        whole from an FSDP state); PSNR / SSIM (Y) against the GT where
+        there is one (and LPIPS, one batched call a shape group, for the
+        LPIPS trainer), appended to the JSON log; the first image's
+        restoration and progressive strip under images/val.
+        `train.val_max_images` bounds the set.  Each rank restores its share
+        of the items (`items[rank::world]`, their indices in `val_items`)
+        and the sums are all-reduced, so every rank returns the metrics over
+        the whole set.  Each shape group's batch is split over the process's
+        cards where it owns several (one process on a multi-card host).
+        Returns (psnr, ssim) or None."""
+        ema = {n: full_tensor(e) for n, e in self.step_fn.ema.items()}
         if max_images is None:
             raw = dict(self.config.get("train") or {}).get("val_max_images")
             max_images = int(raw) if raw else None
         ds = create_dataset(self.val_cfg)
-        vp = self._val_pipeline()
+        vp = self._val_pipeline(ema)
+        devices = local_devices() if self.world == 1 and self.device.type == "cuda" else []
         n_items = len(ds) if max_images is None else min(len(ds), max_images)
-        items = [ds[i] for i in range(n_items)]
+        self.val_items = list(range(self.rank, n_items, self.world))
+        items = {i: ds[i] for i in self.val_items}
         val_dir = self.save_dir / "images" / "val"
         dev = self.device
         as_t = lambda a: torch.as_tensor(np.asarray(a)).to(dev)
-        if items:
+        if 0 in items:  # rank 0's
             lq0 = as_t(items[0]["lq"])[None]
             mask0 = as_t(items[0]["mask"])[None] if "mask" in items[0] else None
             if max(lq0.shape[1:3]) <= vp.chop_size:
@@ -299,7 +328,7 @@ class Trainer:
                 imwrite(make_grid(strip01, ncol=strip01.shape[0]),
                         val_dir / f"progress_{it:06d}.png")
         groups: dict[tuple, list] = {}
-        for i, item in enumerate(items):
+        for i, item in items.items():
             groups.setdefault((item["lq"].shape, "mask" in item), []).append((i, item))
         psnr = ssim = lpips_sum = 0.0
         n = 0
@@ -307,7 +336,9 @@ class Trainer:
             lq = as_t(np.stack([item["lq"] for _, item in group]))
             mask = (as_t(np.stack([item["mask"] for _, item in group]))
                     if "mask" in group[0][1] else None)
-            sr = vp.sample(lq, torch.Generator(device=dev).manual_seed(gi + 1), mask)
+            gen = torch.Generator(device=dev).manual_seed(gi + 1)
+            sr = (vp.sample_batch_sharded(lq, gen, devices, mask)
+                  if len(devices) > 1 and lq.shape[0] > 1 else vp.sample(lq, gen, mask))
             sr01 = from_model(sr.cpu().numpy())
             for j, (i, _) in enumerate(group):
                 if i == 0:
@@ -323,6 +354,11 @@ class Trainer:
                         v = self.lpips(as_t(sr01[idx] * 2 - 1), as_t(gt))
                     lpips_sum += float(v.float().sum())
                 n += len(idx)
+        if self.world > 1:
+            sums = torch.tensor([psnr, ssim, lpips_sum, n], dtype=torch.float64, device=dev)
+            torch.distributed.all_reduce(sums)
+            psnr, ssim, lpips_sum, n = sums.tolist()
+            n = int(n)
         if not n:
             return None
         metrics = {"iter": it, "val_n": n, "val_psnr_y": float(psnr / n),
@@ -331,24 +367,31 @@ class Trainer:
         if self.lpips is not None:
             metrics["val_lpips"] = lpips_sum / n
             msg += f" LPIPS={lpips_sum / n:.4f}"
-        with open(self.save_dir / "train_log.jsonl", "a") as f:
-            f.write(json.dumps(metrics) + "\n")
-        print(msg, flush=True)
+        if self.rank0:
+            with open(self.save_dir / "train_log.jsonl", "a") as f:
+                f.write(json.dumps(metrics) + "\n")
+            print(msg, flush=True)
         return psnr / n, ssim / n
 
     # ------------------------------------------------------------ checkpoints
 
     def save(self, it: int, block: bool = True) -> None:
         """Checkpoint the train state under ckpts/step_XXXXXXXX; `block=False`
-        returns once the state is copied to the host."""
+        returns once the state is copied to the host.  Every rank gathers
+        (an FSDP state), rank 0 writes."""
+        state = self.step_fn.state_dict()
+        if not self.rank0:
+            return
         if self._saver is None:
             self._saver = AsyncSaver()
-        self._saver.save(self.save_dir / "ckpts", self.step_fn.state_dict(), step=it)
+        self._saver.save(self.save_dir / "ckpts", state, step=it)
         if block:
             self._saver.wait()
         print(f"[ckpt] {'saved' if block else 'saving (async)'} step {it}", flush=True)
 
     def resume(self, path: str) -> None:
+        """Continue from a checkpoint, whatever world size wrote it."""
         self.step_fn.load_state_dict(restore_train_state(path))
         self.start_iter = self.step_fn.step
-        print(f"[resume] from {path} at step {self.start_iter}", flush=True)
+        if self.rank0:
+            print(f"[resume] from {path} at step {self.start_iter}", flush=True)

@@ -27,6 +27,27 @@ buckets (t = 0, T // 2, T - 1), lr and the global gradient norm, as 0-d
 tensors.
 `remat` ("dots": keep matmul and conv outputs, recompute the elementwise
 chains; "full": keep nothing) wraps the UNet in `torch.utils.checkpoint`.
+
+Across processes (a process group up: `parallel.mesh.maybe_init_distributed`)
+each rank runs this step on its own part of the global batch:
+  * DP: the gradients are averaged over the ranks before AdamW by one
+    all-reduce of their concatenation, so every rank takes the same step and
+    keeps the same EMA; with equal local batches that is the JAX package's
+    mean over the global batch;
+  * FSDP (`train.fsdp: true`): the train clone is sharded with `fully_shard`,
+    so the parameters, their gradients, the AdamW moments and the EMA are
+    each cut along dim 0 over the ranks (`named` holds the DTensors); the
+    forward gathers the parameters, the backward reduce-scatters and
+    averages the gradients.  `state_dict` gathers the whole state (every
+    rank calls it), so a checkpoint is the same file at any world size, and
+    `load_state_dict` takes each rank's piece of it.  Without a process
+    group the step runs unsharded, as the JAX package's does on one device;
+    the pipeline's own UNet stays whole and is refreshed by `sync_pipe`.
+The metrics are the JAX step's over the global batch: averaged over the
+ranks, except the per-timestep buckets without microbatches, which are each
+bucket's sum over the ranks over its count (JAX takes the global batch as one
+microbatch there; with microbatches each rank's are global microbatches of
+its own, so the mean of the ranks' means is JAX's mean over microbatches).
 """
 
 from __future__ import annotations
@@ -42,6 +63,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from .diffusion import resshift as rs
+from .parallel.mesh import all_reduce_mean_, full_tensor, shard_like, shard_module
 from .pipeline import ResShiftPipeline
 
 __all__ = ["TrainConfig", "TrainStep", "lr_schedule_fn"]
@@ -111,20 +133,21 @@ def _save_dots(ctx, op, *args, **kwargs):
 class TrainStep:
     """The train state (the UNet's parameters, AdamW, the EMA, the step) and
     its update.  The parameters are `pipe.unet`'s own (float32 masters,
-    cast to the compute dtype at use); the VQGAN (and `lpips`, a frozen
-    `models.lpips.LPIPS`, where given) stays frozen."""
+    cast to the compute dtype at use), or their shards under FSDP; the
+    VQGAN (and `lpips`, a frozen `models.lpips.LPIPS`, where given) stays
+    frozen."""
 
     def __init__(self, pipe: ResShiftPipeline, cfg: TrainConfig,
                  lpips: torch.nn.Module | None = None):
-        if cfg.fsdp:
-            raise NotImplementedError("train.fsdp needs several cards (ROADMAP.md section 1, "
-                                      "multi-GPU)")
         if cfg.remat not in (None, "dots", "full"):
             raise ValueError(f"remat must be 'dots', 'full' or null, got {cfg.remat!r}")
         self.pipe, self.cfg = pipe, cfg
         self.lr_fn = lr_schedule_fn(cfg)
+        self.fsdp = cfg.fsdp and torch.distributed.is_initialized()
         self.train_unet = pipe.unet.clone(use_pallas=False).train()
-        self.named = list(pipe.unet.named_parameters())
+        if self.fsdp:  # the clone's parameters become DTensor shards of their own
+            shard_module(self.train_unet)
+        self.named = list((self.train_unet if self.fsdp else pipe.unet).named_parameters())
         if pipe.vq is not None:
             pipe.vq.requires_grad_(False)
         self.lpips = lpips
@@ -161,7 +184,8 @@ class TrainStep:
                     self.pipe._encode(self.pipe.vq, batch["gt"], up_sample=False))
 
     def loss(self, batch: dict, generator: torch.Generator | None, draws=None):
-        """One microbatch: (loss with its graph, detached metrics)."""
+        """One microbatch: (loss with its graph, detached metrics, the
+        per-timestep buckets' sample counts)."""
         pipe, sched = self.pipe, self.pipe.sched
         z_y, z0 = self.encode(batch)
         if draws is None:
@@ -187,12 +211,14 @@ class TrainStep:
             lp = torch.nan_to_num(self.lpips(x0, batch["gt"]).float().mean())
             loss = loss + self.cfg.loss_coef[1] * lp
             metrics["lpips"] = lp.detach()
+        counts = {}
         for name, tt in (("loss_t0", 0), ("loss_tmid", sched.num_timesteps // 2),
                          ("loss_tlast", sched.num_timesteps - 1)):
             sel = (t == tt).float()
-            metrics[name] = (mse * sel).sum() / sel.sum().clamp(min=1.0)
+            counts[name] = sel.sum()
+            metrics[name] = (mse * sel).sum() / counts[name].clamp(min=1.0)
         metrics["loss"] = loss.detach()
-        return loss, metrics
+        return loss, metrics, counts
 
     # ------------------------------------------------------------- the step
 
@@ -215,7 +241,8 @@ class TrainStep:
                     dev = None if generator is None else generator.device
                     torch.manual_seed(int(torch.randint(2**62, (1,), generator=generator,
                                                         device=dev)))
-                loss, metrics = self.loss(part, generator, None if draws is None else draws[i])
+                loss, metrics, counts = self.loss(part, generator,
+                                                  None if draws is None else draws[i])
                 loss.backward()
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
@@ -224,14 +251,24 @@ class TrainStep:
                 p.grad = torch.zeros_like(p)
             elif n_micro > 1:
                 p.grad.div_(n_micro)
-        return {k: v / n_micro for k, v in sums.items()}
+        if not self.fsdp:  # FSDP's backward has reduce-scattered them already
+            all_reduce_mean_([p.grad for _, p in self.named])
+        metrics = {k: v / n_micro for k, v in sums.items()}
+        buckets = {}
+        if not self.cfg.microbatch and torch.distributed.is_initialized():
+            buckets = {k: metrics.pop(k) for k in counts}  # one microbatch on this rank
+            flat = torch.stack([buckets[k] * counts[k] for k in counts] + list(counts.values()))
+            torch.distributed.all_reduce(flat)
+            buckets = {k: flat[i] / flat[len(counts) + i].clamp(min=1.0)
+                       for i, k in enumerate(counts)}
+        all_reduce_mean_(list(metrics.values()))
+        return {**metrics, **buckets}
 
     def __call__(self, batch: dict, generator: torch.Generator | None = None, draws=None):
         """One optimisation step; returns the metrics (0-d tensors)."""
         metrics = self.grads(batch, generator, draws)
         params = [p for _, p in self.named]
-        grads = [p.grad for p in params]
-        metrics["grad_norm"] = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        metrics["grad_norm"] = self._grad_norm()
         lr = self.lr_fn(self.step)
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -245,28 +282,54 @@ class TrainStep:
         metrics["lr"] = torch.tensor(lr)
         return metrics
 
+    def _grad_norm(self) -> torch.Tensor:
+        """The global L2 norm of the (averaged) gradient; under FSDP from each
+        rank's shards, summed over the ranks."""
+        if not self.fsdp:
+            return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(
+                [p.grad for _, p in self.named])))
+        sq = sum(p.grad.to_local().float().square().sum() for _, p in self.named)
+        torch.distributed.all_reduce(sq)
+        return sq.sqrt()
+
     # ------------------------------------------------------------ the state
 
+    @torch.no_grad()
     def state_dict(self) -> dict:
         """{'step', 'params', 'ema', 'exp_avg', 'exp_avg_sq'}, the last four
-        name -> tensor (references: `checkpoint.AsyncSaver` copies them)."""
+        name -> tensor (references: `checkpoint.AsyncSaver` copies them);
+        whole tensors under FSDP too, gathered from the shards (every rank
+        calls it)."""
         st = self.opt.state
-        moments = {k: {n: st[p][k] for n, p in self.named if p in st}
+        moments = {k: {n: full_tensor(st[p][k]) for n, p in self.named if p in st}
                    for k in ("exp_avg", "exp_avg_sq")}
-        return {"step": self.step, "params": {n: p.detach() for n, p in self.named},
-                "ema": dict(self.ema), **moments}
+        return {"step": self.step,
+                "params": {n: full_tensor(p.detach()) for n, p in self.named},
+                "ema": {n: full_tensor(e) for n, e in self.ema.items()}, **moments}
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        """Restore a `state_dict` (from this class or `convert.train_state_from_flax`)."""
+        """Restore a `state_dict` (from this class or
+        `convert.train_state_from_flax`), whole tensors whatever the world
+        size it was saved at: under FSDP each rank takes its own piece."""
         self.step = int(sd["step"])
         for n, p in self.named:
-            p.copy_(torch.as_tensor(sd["params"][n]))
-            self.ema[n].copy_(torch.as_tensor(sd["ema"][n]))
+            p.copy_(shard_like(torch.as_tensor(sd["params"][n]), p))
+            self.ema[n].copy_(shard_like(torch.as_tensor(sd["ema"][n]), p))
             self.opt.state.pop(p, None)
             if self.step and n in sd.get("exp_avg", {}):
                 self.opt.state[p] = {
                     "step": torch.tensor(float(self.step)),
-                    "exp_avg": torch.as_tensor(sd["exp_avg"][n]).to(p.device, p.dtype).clone(),
-                    "exp_avg_sq": torch.as_tensor(sd["exp_avg_sq"][n]).to(p.device,
-                                                                          p.dtype).clone()}
+                    "exp_avg": shard_like(torch.as_tensor(sd["exp_avg"][n]), p).clone(),
+                    "exp_avg_sq": shard_like(torch.as_tensor(sd["exp_avg_sq"][n]), p).clone()}
+        self.sync_pipe()
+
+    @torch.no_grad()
+    def sync_pipe(self) -> None:
+        """Under FSDP, copy the gathered parameters into the pipeline's own
+        UNet (a collective: every rank calls it), which the image grids run;
+        otherwise they are the same tensors already."""
+        if self.fsdp:
+            own = dict(self.pipe.unet.named_parameters())
+            for n, p in self.named:
+                own[n].copy_(full_tensor(p.detach()))

@@ -277,14 +277,16 @@ def test_unchopped_wide_sample_matches_jax(monkeypatch, steps, min_noise_level):
 # ------------------------------------------------------------- hygiene
 
 def test_port_imports_no_jax_flax_yaml_or_jax_package():
-    # every module, the serving layer, DDPM, the load test and training among them
+    # every module, the serving layer, DDPM, the load test, training and the
+    # data-parallel layer among them
     code = ("import sys, pkgutil, importlib, resshift_tpu_torch as p\n"
             "for m in pkgutil.walk_packages(p.__path__, 'resshift_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "need = ['resshift_tpu_torch.' + m for m in ('serve', 'utils.observability', "
             "'diffusion.ddpm', 'tools.serve_loadtest', 'train_loop', 'trainer', 'checkpoint', "
             "'diffusion.losses', 'data.datasets', 'data.realesrgan', 'data.noise', "
-            "'data.degradations', 'ops.filters', 'ops.diffjpeg')]\n"
+            "'data.degradations', 'ops.filters', 'ops.diffjpeg', 'parallel.mesh', "
+            "'tools.multiprocess_proof')]\n"
             "assert all(m in sys.modules for m in need), need\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'orbax', 'yaml', 'resshift_tpu')]\n"

@@ -314,12 +314,17 @@ def test_serve_chop_size_override():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        _predictor(data_parallel=True)
+    """The int8 VQGAN is not ported and raises; `--dp` is ported: on one
+    device it serves unsplit, as the JAX package's does on one chip."""
+    pred = _predictor(data_parallel=True)
+    try:
+        assert pred.devices is None
+    finally:
+        pred.close()
     with pytest.raises(NotImplementedError):
         _predictor(quant_vqgan="int8")
     with pytest.raises(NotImplementedError):
-        srv.main(["--dp", "--device", "cpu"])
+        srv.main(["--quant-vqgan", "int8", "--device", "cpu"])
     with pytest.raises(ValueError, match=".pth"):
         _predictor(ckpt="weights_dir")
 

@@ -205,12 +205,16 @@ def test_pth_warm_starts_and_orbax_refused(data, tmp_path):
 
 
 def test_lpips_trainer_is_not_ported(data, tmp_path):
-    """The LPIPS trainer is ported; its FSDP, as every trainer's, is not."""
+    """The LPIPS trainer is ported, and takes `train.fsdp` as every trainer
+    does: without a process group its step runs unsharded, as the JAX
+    package's does on one device (tests/test_torch_parallel_train.py shards
+    it over two ranks)."""
     cfg = config(data)
     cfg["trainer"] = "difir_lpips"
     cfg["train"]["fsdp"] = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, save_dir=str(tmp_path), device="cpu")
+    tr = Trainer(cfg, save_dir=str(tmp_path), device="cpu")
+    assert tr.tcfg.fsdp and not tr.step_fn.fsdp and tr.step_fn.lpips is not None
+    assert tr.step_fn.named == list(tr.pipe.unet.named_parameters())
 
 
 def test_cli_train_cpu_trains_checkpoints_and_resumes(data, tmp_path):

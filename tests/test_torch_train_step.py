@@ -290,9 +290,13 @@ def test_dropout_is_live_in_the_train_step_only(small_pipe, port_step):
 
 
 def test_fsdp_and_unknown_remat_raise(small_pipe):
+    """An unknown remat raises.  FSDP no longer does: without a process
+    group the step runs unsharded on the pipeline's own parameters, as the
+    JAX package's does on one device (tests/test_torch_parallel_train.py
+    shards it over two ranks)."""
     pipe = _port_pipe(small_pipe)
-    with pytest.raises(NotImplementedError, match="several cards"):
-        TrainStep(pipe, TrainConfig(fsdp=True))
+    step = TrainStep(pipe, TrainConfig(fsdp=True))
+    assert not step.fsdp and step.named == list(pipe.unet.named_parameters())
     with pytest.raises(ValueError, match="remat"):
         TrainStep(pipe, TrainConfig(remat="all"))
 
