@@ -206,6 +206,23 @@ bit;
      true`, in one process; ms per iteration and peak memory of each, then
      the FSDP checkpoint resumed in this process (no process group) for one
      more iteration;
+ 22. tensor and pipeline parallelism on the one card, realsr_v1 at full
+     width, bf16, phase 3's weights: (a) `sample_tp` on one 64x64 LQ at
+     batch 1 (the latency case) over two gloo ranks sharing the card
+     (`multiprocess_proof --tp`, each rank a process): the ranks'
+     images bit-equal, >= 35 dB from the plain-pinned `sample` on the same
+     draws; then in a world-size-1 NCCL group in this process (the split
+     forms, NCCL's collectives): the same bar, no kernel launched; ms a call
+     and the collectives of a call beside the plain call; (b)
+     `sample_pipelined` on phase 5's chopped 112x176 input (12 tiles, chunks
+     of 4) over [card, card] (two stages of 8 and 7 steps, two replicas):
+     bit-equal to `sample(tile_bs=4)` on the same draws, A-D launched as
+     that call launches them; over [[card, card], [card, card]] (PP x DP):
+     each chunk in two parts, bit-equal to `sample(tile_bs=2)` on the same
+     draws and >= 35 dB from `sample(tile_bs=4)`, twice the launches; ms a call;
+     [card, card] and `sample(tile_bs=4)` timed two calls each, alternated;
+     then [card, cpu] at a small width in f32, pinned
+     plain, within rtol / atol 5e-3 of the card's `sample(tile_bs=2)`;
 then print the `kernels` JSON line (each kernel's `backward` and its phase-2
 backward error among its keys; every phase's launches under
 `launches_by_phase`) and, last, the result line.
@@ -2202,6 +2219,178 @@ def parallel_phase(dev, card: str, all_kernels: dict, read_launches, reset, laun
     return result
 
 
+def tp_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict,
+             sds: dict) -> dict:
+    """Phase 22(a): `sample_tp` on one 64x64 LQ at batch 1 (see the module
+    docstring); `sds` are phase 3's weights.  Returns its figures."""
+    import torch
+    import torch.distributed as dist
+
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.parallel import tp
+    from resshift_tpu_torch.pipeline import ResShiftPipeline
+    from resshift_tpu_torch.tools.multiprocess_proof import free_port, launch_tp
+
+    result = {}
+    seed = 26
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)
+    lq = torch.rand(1, 64, 64, 3, generator=torch.Generator().manual_seed(27)) * 2 - 1
+    plain = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16, device=dev)
+    plain.load_state_dicts(**sds)
+    plain.unet, plain.vq = plain.unet.clone(use_pallas=False), plain.vq.clone(use_pallas=False)
+    ref = plain.sample(lq, gen())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain.sample(lq, gen())
+    torch.cuda.synchronize()
+    result["plain_ms"] = (time.perf_counter() - t1) * 1e3
+
+    def against_plain(tag, out):
+        psnr, same = db(out.to(dev), ref, 2.0), (out.to(dev) == ref).float().mean().item()
+        print(f"  {tag}: image {psnr:.2f} dB from the plain-pinned sample on the same draws "
+              f"(bar 35), {100 * same:.2f}% of values bit-equal", flush=True)
+        if out.shape != ref.shape or not torch.isfinite(out).all() or not psnr >= 35.0:
+            raise AssertionError(f"{tag}: output {tuple(out.shape)}, {psnr:.2f} dB")
+        return psnr
+
+    # two gloo ranks sharing the card, each a process of the launcher
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name)
+    torch.save({"config": "realsr_v1", "dtype": "bfloat16",
+                **{k: {n: v.cpu() for n, v in sd.items()} for k, sd in sds.items()},
+                "cases": [{"name": "tp", "lq": lq, "seed": seed}]}, root / "spec.pt")
+    t1 = time.perf_counter()
+    rep = launch_tp(root / "run", root / "spec.pt", nproc=2, device=f"cuda:{dev.index or 0}",
+                    backend="gloo", timeout=300, threads=4)
+    wall = time.perf_counter() - t1
+    if not rep["ok"]:
+        logs = "\n".join((root / "run" / f"worker_{r}.log").read_text()[-2000:] for r in range(2))
+        raise AssertionError(f"22a: the gloo ranks failed: {rep}\n{logs}")
+    outs = [torch.load(root / "run" / "tp" / f"tp_rank{r}.pt") for r in range(2)]
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("22a: the two ranks' images differ")
+    case = rep["cases"]["tp"]
+    result["gloo_db"] = against_plain("22a gloo x 2 (bit-equal ranks)", outs[0])
+    result["gloo_ms"] = [statistics.median(ms) for ms in case["ms"]]
+    result["collectives"] = case["collectives"]
+    print(f"  22a gloo x 2 on one card: ms a call per rank {case['ms']} (the first call after "
+          f"an untimed build of the split clone), {case['collectives']} collectives a call, "
+          f"{wall:.1f} s with the processes' start; plain-pinned sample "
+          f"{result['plain_ms']:.1f} ms; on {card}", flush=True)
+    tmp.cleanup()
+
+    # a world-size-1 NCCL group in this process: the split forms, NCCL's collectives
+    pipe = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16, device=dev)
+    pipe.load_state_dicts(**sds)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        pipe._tp_models(None)  # the split clone, built before the clock starts
+        reset()
+        before = dict(tp.COLLECTIVES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = pipe.sample_tp(lq.to(dev), gen())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t1) * 1e3
+        got = read_launches(all_kernels, sb)
+        if any(got.values()):
+            raise AssertionError(f"22a: sample_tp launched a kernel: {got}")
+        calls = {k: v - before[k] for k, v in tp.COLLECTIVES.items()}
+        launches["22a nccl"] = got
+    finally:
+        dist.destroy_process_group()
+    result["nccl_db"] = against_plain("22a NCCL x 1 (the split forms)", out)
+    result["nccl_ms"] = ms
+    print(f"  22a NCCL x 1: {ms:.1f} ms, the first call after an untimed build of the split "
+          f"clone, {calls} collectives a call, no kernel launched; on {card}", flush=True)
+    del plain, pipe
+    return result
+
+
+def pp_phase(dev, card: str, all_kernels: dict, read_launches, reset, launches: dict,
+             sds: dict) -> dict:
+    """Phase 22(b): `sample_pipelined` over two stages on the one card (see
+    the module docstring); `sds` are phase 3's weights.  Returns its
+    figures."""
+    import torch
+
+    from resshift_tpu_torch.ops import swin_block as sb
+    from resshift_tpu_torch.pipeline import ResShiftPipeline
+
+    result = {}
+    pipe = ResShiftPipeline("realsr_v1", dtype=torch.bfloat16, device=dev)
+    pipe.load_state_dicts(**sds)
+    gen = lambda: torch.Generator(device=dev).manual_seed(28)
+    lq = torch.rand(1, 112, 176, 3, generator=torch.Generator().manual_seed(4)).to(dev) * 2 - 1
+    chop = dict(chop_size=64, chop_stride=48)  # 128x192 padded: 12 tiles, 3 chunks of 4
+
+    def call(fn):
+        reset()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_launches(all_kernels, sb), (time.perf_counter() - t1) * 1e3
+
+    ref, ref_n, _ = call(lambda: pipe.sample(lq, gen(), tile_bs=4, **chop))
+    per = expected_launches(pipe.config, 64, 64)
+    if ref_n != {k: 3 * v for k, v in per.items()}:
+        raise AssertionError(f"22b: sample(tile_bs=4) launched {ref_n}, want 3 x {per}")
+    # PP x DP runs each chunk of 4 in two parts of 2: sample(tile_bs=2) on the same draws
+    draws = pipe.chain_draws(lq.shape, gen(), tile_bs=4, **chop)
+    halves = pipe.sample(lq, tile_bs=2, draws=draws, **chop)
+    for tag, devices, parts, same_as in (("22b pp", [dev, dev], 1, ref),
+                                         ("22b pp x dp", [[dev, dev], [dev, dev]], 2, halves)):
+        out, got, first = call(lambda: pipe.sample_pipelined(lq, gen(), devices, chunk_bs=4,
+                                                             **chop))
+        launches[tag] = got
+        want = {k: parts * v for k, v in ref_n.items()}
+        print(f"  {tag}: launches in one call {got} (derived: {parts} x sample(tile_bs=4)'s "
+              f"{ref_n})", flush=True)
+        if got != want or not all(got[k] for k in "ABCD"):
+            raise AssertionError(f"{tag}: launch counts {got}, want {want}")
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            raise AssertionError(f"{tag}: output {tuple(out.shape)}")
+        same = (out == ref).float().mean().item()
+        psnr = db(out, ref, 2.0)
+        print(f"  {tag}: against sample(tile_bs=4) on the same draws: {100 * same:.2f}% of "
+              f"values bit-equal, image {psnr:.2f} dB (bar 35); bit-equal to "
+              f"sample(tile_bs={4 // parts}) on them", flush=True)
+        if not torch.equal(out, same_as) or not psnr >= 35.0:
+            raise AssertionError(f"{tag}: not bit-equal to sample(tile_bs={4 // parts}) on the "
+                                 f"same draws, or {psnr:.2f} dB from sample(tile_bs=4)")
+        result[tag] = first
+        print(f"  {tag}: {first:.1f} ms this call (its new replicas built in it)", flush=True)
+    # two stages against sample on the one card: two calls each, alternated
+    runs = {"22b pp": lambda: pipe.sample_pipelined(lq, gen(), [dev, dev], chunk_bs=4, **chop),
+            "22b sample(tile_bs=4)": lambda: pipe.sample(lq, gen(), tile_bs=4, **chop)}
+    for _ in range(2):
+        for tag, fn in runs.items():
+            result.setdefault(f"{tag} ms", []).append(call(fn)[2])
+    for tag in runs:
+        print(f"  {tag}: {result[tag + ' ms']} ms a call, two calls alternated with the "
+              f"other's; on {card}", flush=True)
+    del pipe
+
+    # [card, cpu] at a small width in f32, pinned plain: the second stage on the host
+    cpu = torch.device("cpu")
+    small = ResShiftPipeline(SMALL_REALSR, dtype=torch.float32, device=dev)
+    small.init_params(0)
+    small.unet, small.vq = small.unet.clone(use_pallas=False), small.vq.clone(use_pallas=False)
+    lq2 = (torch.rand(1, 40, 40, 3, generator=torch.Generator().manual_seed(29)) * 2 - 1).to(dev)
+    gen2 = lambda: torch.Generator(device=dev).manual_seed(30)
+    want = small.sample(lq2, gen2(), tile_bs=2)
+    got = small.sample_pipelined(lq2, gen2(), [dev, cpu], chunk_bs=2)
+    if sorted(k[0].type for k in small._compute) != ["cpu", "cuda"]:
+        raise AssertionError(f"22b [card, cpu]: replicas {list(small._compute)}")
+    err = (got.cpu() - want.cpu()).abs().max().item()
+    print(f"  22b [{dev}, cpu]: a 40x40 input (9 tiles, chunks of 2) at a small width, f32, "
+          f"plain: within {err:.3g} of the card's sample(tile_bs=2) (bar 5e-3)", flush=True)
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=5e-3, atol=5e-3)
+    return result
+
+
 def run_tools() -> dict:
     """Phase 12: each tool of TOOL_RUNS through its `main` (the function its
     `python -m` entry point calls), in this process on the card, at its full
@@ -3192,7 +3381,17 @@ def main() -> int:
           "tile-sharded samplers, (b) serving, (c) DP and FSDP training in a world-size-1 NCCL "
           "group", flush=True)
     parallel_phase(dev, card, all_kernels, read_launches, reset, launches, v1_sds, serve13)
-    print(f"chip_smoke: phases 1-21 in {time.perf_counter() - t_main:.1f} s", flush=True)
+
+    # ---------------------------------------------------------------- 22
+    t22 = time.perf_counter()
+    print(f"[{t22 - t_main:.1f} s into the run]", flush=True)
+    print("phase 22: tensor and pipeline parallelism on the one card: (a) sample_tp over two "
+          "gloo ranks sharing it, and in a world-size-1 NCCL group; (b) sample_pipelined over "
+          "two stages, 2 x 2 stages x replicas, and [card, cpu]", flush=True)
+    tp_phase(dev, card, all_kernels, read_launches, reset, launches, v1_sds)
+    pp_phase(dev, card, all_kernels, read_launches, reset, launches, v1_sds)
+    print(f"  phase 22 in {time.perf_counter() - t22:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-22 in {time.perf_counter() - t_main:.1f} s", flush=True)
 
     rows = kernel_rows(launches, errs, timed)
     backward = {"A": "autograd Function: the plain version's gradient, recomputed",

@@ -25,6 +25,15 @@ that owns several cards splits each batch over them
 (`ResShiftPipeline.sample_batch_sharded`), or a single image larger than
 the chop size by its tiles (`sample_tiles_sharded`).
 
+`--tensor-parallel` (under torchrun) splits the models' weights over the
+process group instead (`ResShiftPipeline.sample_tp`, parallel/tp.py):
+every rank samples every file, one card's share of each layer a rank, and
+rank 0 writes the images; it refuses `--distributed`, which splits the
+folder.  `--pipeline-parallel` stages the reverse chain over the process's
+cards (`sample_pipelined`, parallel/pp.py), chunks of `--chop-bs` tiles
+streaming through.  Each falls through to the next mode where there is
+only one process or one card, as in the JAX package.
+
 `--time-parallel SWEEPS` runs an unchopped input's reverse chain as
 Picard sweeps (`ResShiftPipeline.sample_time_parallel`), each sweep's batch
 split over the process's cards.
@@ -93,6 +102,12 @@ def _pipeline(args, cfg: dict) -> ResShiftPipeline:
     return pipe
 
 
+def _devices(pipe: ResShiftPipeline) -> list[torch.device]:
+    """The devices a sampler may spread one call over: this process's cards,
+    or the pipeline's one device off CUDA."""
+    return mesh.local_devices() if pipe.device.type == "cuda" else [pipe.device]
+
+
 def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
     """Restore this process's share of the images under --in-path (every
     world-th file from its rank) into --out-path as PNG; returns all the
@@ -100,8 +115,11 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
     in_path, out_path = Path(args.in_path), Path(args.out_path)
     out_path.mkdir(parents=True, exist_ok=True)
     all_files = list_images(in_path) if in_path.is_dir() else [in_path]
-    files = all_files[mesh.rank()::mesh.world_size()]
-    devices = mesh.local_devices() if pipe.device.type == "cuda" else [pipe.device]
+    # tensor parallelism: every rank samples every image, rank 0 writes them
+    tensor_parallel = getattr(args, "tensor_parallel", False) and mesh.world_size() > 1
+    writes = not tensor_parallel or mesh.rank() == 0
+    files = all_files if tensor_parallel else all_files[mesh.rank()::mesh.world_size()]
+    devices = _devices(pipe)
     print(f"Found {len(all_files)} image(s) in {in_path}; process {mesh.rank()} of "
           f"{mesh.world_size()} restores {len(files)}, sampling on "
           f"{', '.join(map(str, devices))}", flush=True)
@@ -136,7 +154,13 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
                                        for f, _ in group], axis=0)
             mask_t = None if mask is None else torch.from_numpy(mask)
             chopped = max(lq.shape[1:3]) > pipe.chop_size
-            if getattr(args, "time_parallel", 0) and not chopped:
+            if tensor_parallel:  # each layer's weights over the process group
+                sr = pipe.sample_tp(lq, generator, mask_t, noise_repeat=args.noise_repeat)
+            elif getattr(args, "pipeline_parallel", False) and len(devices) > 1:
+                # the chain's steps staged over the cards, chunks streaming through
+                sr = pipe.sample_pipelined(lq, generator, devices, mask_t,
+                                           noise_repeat=args.noise_repeat, chunk_bs=args.chop_bs)
+            elif getattr(args, "time_parallel", 0) and not chopped:
                 # the Picard chain: the UNet runs SWEEPS times on a (T*B) batch
                 sr = pipe.sample_time_parallel(lq, generator, mask_t, sweeps=args.time_parallel,
                                                devices=devices)
@@ -168,7 +192,8 @@ def _infer(pipe: ResShiftPipeline, args) -> tuple[list[Path], float]:
                 print(f"[{done}/{len(files)}] batch of {len(group)}: {arr.shape[2]}x{arr.shape[1]} "
                       f"({time.perf_counter() - t_start:.2f}s elapsed)", flush=True)
 
-            writer.submit(write_job)
+            if writes:
+                writer.submit(write_job)
     seconds = time.perf_counter() - t_start
     print(f"Done: {state['px'] / max(seconds, 1e-9) / 1e6:.3f} Mpx/s wall (compute + "
           f"pipelined I/O) -> {out_path}", flush=True)
@@ -302,6 +327,13 @@ def make_parser() -> argparse.ArgumentParser:
                     help="run the reverse chain as SWEEPS Picard sweeps over all steps at "
                          "once (inputs that are not chopped; SWEEPS = steps gives the "
                          "sequential result)")
+    pi.add_argument("--tensor-parallel", action="store_true",
+                    help="split the models' weights over the process group (torchrun; "
+                         "parallel/tp.py; exact: the batch-1 latency mode)")
+    pi.add_argument("--pipeline-parallel", action="store_true",
+                    help="stage the reverse chain over this process's cards (parallel/pp.py; "
+                         "exact: each card runs its slice of the steps, chunks of --chop-bs "
+                         "tiles flow from card to card)")
     pi.add_argument("--mask-path", default=None, help="inpainting mask (file or folder)")
     pi.add_argument("--mask-back", action="store_true", default=True,
                     help="paste the input back outside the mask (always on, as in the "
@@ -334,6 +366,9 @@ def make_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = make_parser().parse_args(argv)
+    if args.distributed and getattr(args, "tensor_parallel", False):
+        raise SystemExit("--tensor-parallel splits each image's work over the process group and "
+                         "--distributed splits the folder over it: give one of them")
     # before any tensor reaches a card: the group binds this process to its own
     mesh.maybe_init_distributed(force=args.distributed, device=args.device)
     args.fn(args)

@@ -23,7 +23,7 @@ __all__ = ["q_sample", "q_mean_variance", "q_posterior_mean_variance", "training
            "predict_xstart_from_eps_scale", "predict_xstart_from_residual",
            "predict_eps_from_xstart", "prior_sample", "p_mean_variance",
            "p_sample", "sample_loop", "sample_loop_parallel", "sample_loop_progressive",
-           "chain_draws", "PMeanVariance"]
+           "chain_draws", "run_steps", "PMeanVariance"]
 
 # model_fn(x_scaled, t_original, **cond) -> model output; t_original is the
 # timestep after mapping through sched.timestep_map (respacing)
@@ -218,15 +218,26 @@ def sample_loop(sched: Schedule, model_fn: ModelFn, z_y: torch.Tensor,
         noise = torch.randn(z_y.shape, generator=generator, dtype=torch.float32,
                             device=z_y.device)
     x = prior_sample(sched, z_y, noise)
-    for i, t in enumerate(range(sched.num_timesteps - 1, -1, -1)):
-        if step_noise is None:
-            x, _ = p_sample(sched, model_fn, x, z_y, t, generator,
-                            clip_denoised=clip_denoised, model_kwargs=model_kwargs,
-                            noise_repeat=noise_repeat)
-        else:
-            out = p_mean_variance(sched, model_fn, x, z_y, t, clip_denoised=clip_denoised,
-                                  model_kwargs=model_kwargs)
-            x = _step(out, t, step_noise[i])
+    steps = range(sched.num_timesteps - 1, -1, -1)
+    if step_noise is not None:
+        return run_steps(sched, model_fn, x, z_y, steps, step_noise,
+                         clip_denoised=clip_denoised, model_kwargs=model_kwargs)
+    for t in steps:
+        x, _ = p_sample(sched, model_fn, x, z_y, t, generator, clip_denoised=clip_denoised,
+                        model_kwargs=model_kwargs, noise_repeat=noise_repeat)
+    return x
+
+
+def run_steps(sched: Schedule, model_fn: ModelFn, x: torch.Tensor, z_y: torch.Tensor,
+              steps, step_noise: torch.Tensor, *, clip_denoised: bool = True,
+              model_kwargs: dict[str, Any] | None = None) -> torch.Tensor:
+    """The reverse steps t of `steps` (descending) from x, each with its
+    draw step_noise[T-1-t] (the chain's (T, B, ...) draws): a slice of
+    `sample_loop`'s chain, as a pipeline stage runs it."""
+    for t in steps:
+        out = p_mean_variance(sched, model_fn, x, z_y, t, clip_denoised=clip_denoised,
+                              model_kwargs=model_kwargs)
+        x = _step(out, t, step_noise[sched.num_timesteps - 1 - t])
     return x
 
 

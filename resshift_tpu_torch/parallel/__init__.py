@@ -1,1 +1,2 @@
-"""Data parallelism: process groups, per-card replicas, DP and FSDP training."""
+"""Parallelism: process groups, per-card replicas, DP and FSDP training
+(`mesh`), tensor parallelism (`tp`) and pipeline parallelism (`pp`)."""

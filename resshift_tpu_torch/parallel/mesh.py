@@ -39,14 +39,16 @@ __all__ = ["maybe_init_distributed", "rank", "world_size", "local_rank", "proces
 
 
 def maybe_init_distributed(force: bool = False, device: str | torch.device | None = None,
-                           timeout_s: float = 600.0) -> bool:
+                           timeout_s: float = 600.0, backend: str | None = None) -> bool:
     """Bring up the process group where the environment names one (torchrun's
     `WORLD_SIZE` and `MASTER_ADDR`, with `RANK` and `MASTER_PORT`), or where
     `force` asks for it; a no-op otherwise, and where the group is already up.
 
     The backend is NCCL where the process computes on a card (`device`, by
-    default CUDA where present), on `cuda:LOCAL_RANK`, which becomes the
-    current card; gloo on the CPU.  Returns whether more than one process
+    default CUDA where present), on `cuda:LOCAL_RANK` (or the card `device`
+    names), which becomes the current card; gloo on the CPU.  `backend`
+    overrides the choice: gloo ranks may share a card, which NCCL refuses.
+    `timeout_s` bounds the rendezvous too.  Returns whether more than one process
     runs.  Raises where a group is asked for but cannot be formed (a missing
     variable, an unreachable rendezvous within `timeout_s`): degrading to N
     independent rank-0 jobs would train N copies on one shard each and write
@@ -60,8 +62,9 @@ def maybe_init_distributed(force: bool = False, device: str | torch.device | Non
                        else "cuda" if torch.cuda.is_available() else "cpu")
     try:
         if dev.type == "cuda":
-            torch.cuda.set_device(local_rank())
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://",
+            torch.cuda.set_device(local_rank() if dev.index is None else dev.index)
+        dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                                init_method="env://",
                                 timeout=datetime.timedelta(seconds=timeout_s))
     except (RuntimeError, ValueError, OSError) as e:
         raise RuntimeError(

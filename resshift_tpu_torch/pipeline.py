@@ -33,6 +33,13 @@ overlapping tile grid, their masks (inpainting) through the same grid.
     pipeline's own) and the schedule; the noise is drawn whole on the
     pipeline's device in `sample`'s order (`chain_draws`) and each shard
     takes its rows, so a sharded call draws what `sample` would.
+  * Tensor parallelism (`sample_tp`, parallel/tp.py): every rank of a
+    process group runs the chain on its pieces of the weights (the
+    Megatron layout, plain compositions only, as the JAX package's
+    `_tp_clone`), and every rank returns the same image.
+  * Pipeline parallelism (`sample_pipelined`, parallel/pp.py): the chain's
+    steps staged over devices of this process, chunks of tiles streaming
+    through; each stage runs the kernels, as `sample` does.
 
 The pipeline runs on CUDA unless the caller passes `device="cpu"`; without
 CUDA and without that argument it raises.  Images are NHWC float32 in
@@ -313,12 +320,14 @@ class ResShiftPipeline:
     @torch.no_grad()
     def _sample_tile(self, lq: torch.Tensor, generator: torch.Generator | None, mask=None,
                      noise_repeat: bool = False, noise: torch.Tensor | None = None,
-                     step_noise: torch.Tensor | None = None, slot: int = 0) -> torch.Tensor:
+                     step_noise: torch.Tensor | None = None, slot: int = 0,
+                     models: tuple | None = None) -> torch.Tensor:
         """One (padded) tile batch, on the card that `lq` lies on (that
-        card's replica `slot` of the models).  `noise` / `step_noise` fix
-        the Gaussian draws as the chain takes them; otherwise they come from
-        `generator`, the prior (or x_T) draw first."""
-        unet, vq = self._compute_params(lq.device, slot)
+        card's replica `slot` of the models, or `models`, a (unet, vq)
+        pair).  `noise` / `step_noise` fix the Gaussian draws as the chain
+        takes them; otherwise they come from `generator`, the prior (or x_T)
+        draw first."""
+        unet, vq = models or self._compute_params(lq.device, slot)
         if self.variant == "ddpm":
             if noise_repeat:
                 raise ValueError("noise_repeat is not defined for diffusion.variant ddpm")
@@ -525,6 +534,35 @@ class ResShiftPipeline:
         mask = None if mask is None else mask.to(self.device, torch.float32)
         return lq, mask, generator, devices
 
+    def _tiled(self, lq, mask, generator, draws, noise_repeat, chop_size, chop_stride,
+               tile_bs):
+        """The set-up of the samplers that deal out tiles: `lq` and `mask` on
+        the pipeline's device, padded as `sample` pads them and cut by its
+        grid (the padded images where it does not tile), and the draws of
+        `sample(..., tile_bs=tile_bs)` (every tile in one batch where
+        `tile_bs` is None): `draws`, else taken from `generator` (a fresh
+        one seeded 0 on the pipeline's device when None).  Returns (tiles,
+        mask tiles or None, noise, eps, the grid or None, finish); `finish`
+        gathers the tiles' outputs into the images and crops them."""
+        if generator is None and draws is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        lq = lq.to(self.device, torch.float32)
+        mask = None if mask is None else mask.to(self.device, torch.float32)
+        b, h, w, _ = lq.shape
+        lqp, maskp = self._pad(lq, mask, chop_size)
+        grid, _, _ = self._chunks(b, *lqp.shape[1:3], chop_size, chop_stride, 1)
+        tiles = lqp if grid is None else grid.split(lqp)
+        mtiles = maskp if grid is None or maskp is None else grid.split(maskp)
+        noise, eps = draws or self.chain_draws(lq.shape, generator, noise_repeat=noise_repeat,
+                                               chop_size=chop_size, chop_stride=chop_stride,
+                                               tile_bs=tile_bs or tiles.shape[0])
+
+        def finish(out):
+            out = out if grid is None else grid.gather(out, b)
+            return out[:, :h * self.sf, :w * self.sf, :]
+
+        return tiles, mtiles, noise, eps, grid, finish
+
     @torch.no_grad()
     def sample_batch_sharded(self, lq: torch.Tensor, generator: torch.Generator | None = None,
                              devices: list | None = None, mask: torch.Tensor | None = None, *,
@@ -579,16 +617,10 @@ class ResShiftPipeline:
         batch; the replicas and the order of the shards are
         `sample_batch_sharded`'s."""
         lq, mask, generator, devices = self._inputs(lq, mask, generator, devices)
-        chop_size, chop_stride = chop_size or self.chop_size, chop_stride or self.chop_stride
-        b, h, w, _ = lq.shape
-        lqp, maskp = self._pad(lq, mask, chop_size)
-        hp, wp = lqp.shape[1:3]
-        grid = TileGrid(hp, wp, chop_size, chop_stride, sf=self.sf)
-        tiles = grid.split(lqp)
-        mtiles = None if maskp is None else grid.split(maskp)
+        tiles, mtiles, noise, eps, _, finish = self._tiled(
+            lq, mask, generator, None, False, chop_size or self.chop_size,
+            chop_stride or self.chop_stride, None)
         t_total, n = tiles.shape[0], len(devices)
-        noise, eps = self.chain_draws(lq.shape, generator, chop_size=chop_size,
-                                      chop_stride=chop_stride, tile_bs=t_total)
         pad = (-t_total) % n
         if pad:
             rep = lambda t, dim=0: torch.cat([t, t.narrow(dim, 0, pad)], dim=dim)
@@ -601,5 +633,131 @@ class ResShiftPipeline:
             outs.append(self._sample_tile(
                 tiles[part].to(dev), None, None if mtiles is None else mtiles[part].to(dev),
                 noise=noise[part].to(dev), step_noise=eps[:, part].to(dev), slot=slot))
-        out = torch.cat([o.to(self.device) for o in outs])[:t_total]
-        return grid.gather(out, b)[:, :h * self.sf, :w * self.sf, :]
+        return finish(torch.cat([o.to(self.device) for o in outs])[:t_total])
+
+    # ------------------------------------------------- tensor / pipeline
+
+    def _tp_models(self, group) -> tuple:
+        """This rank's tensor-parallel clones of the compute models
+        (`tp.tp_clone`) for `group`, made once and dropped with the
+        replicas whenever the weights change."""
+        from .parallel import tp
+
+        unet, vq = self._compute_params()
+        ranks = None if group is None else tuple(torch.distributed.get_process_group_ranks(group))
+        key = ("tp", ranks, _card(self.device))
+        if key not in self._compute:
+            self._compute[key] = (tp.tp_clone(unet, group),
+                                  None if vq is None else tp.tp_clone(vq, group))
+        return self._compute[key]
+
+    @torch.no_grad()
+    def sample_tp(self, lq: torch.Tensor, generator: torch.Generator | None = None,
+                  mask: torch.Tensor | None = None, *, noise_repeat: bool = False,
+                  chop_size: int | None = None, chop_stride: int | None = None,
+                  data: int = 1, draws: tuple | None = None) -> torch.Tensor:
+        """`sample` with the models' weights split over the ranks of the
+        process group (parallel/tp.py), for the latency of one request.
+        Every rank calls it with the same inputs and the same generator (or
+        `draws`) and returns the same image.  `data` > 1 splits the world
+        into `data` tensor-parallel groups of world // data consecutive
+        ranks (DP x TP): an untiled batch is padded to a multiple of `data`
+        by repeating its last image and each group samples its rows; a
+        tiled input's tiles are wrap-padded to a multiple of `data` and
+        walked in chunks of `data` tiles, one a group, as the JAX package
+        walks them.  The draws are `sample`'s (`chain_draws`, at `tile_bs =
+        data` where it tiles, the padding's rows repeating real ones), so
+        the result is `sample(..., tile_bs=data)`'s on the same draws up to
+        the order of the split sums."""
+        from .parallel import tp
+
+        if self.variant != "resshift":
+            raise NotImplementedError("this sampler runs the residual-shifting chain only")
+        group, g, size = tp.tp_groups(data)
+        tiles, mtiles, noise, eps, grid, finish = self._tiled(
+            lq, mask, generator, draws, noise_repeat, chop_size or self.chop_size,
+            chop_stride or self.chop_stride, data)
+        models = self._tp_models(group)
+        n = tiles.shape[0]
+        # the padding repeats the last image, or wraps round to the first tiles
+        idx = (torch.arange(n + (-n) % data) % n if grid is not None
+               else torch.arange(n + (-n) % data).clamp(max=n - 1))
+
+        def run(rows):
+            rows = rows.to(tiles.device)
+            return self._sample_tile(tiles[rows], None,
+                                     None if mtiles is None else mtiles[rows], noise_repeat,
+                                     noise=noise[rows.to(noise.device)].to(tiles.device),
+                                     step_noise=eps[:, rows.to(eps.device)].to(tiles.device),
+                                     models=models)
+
+        if grid is None:  # group g samples its rows at once
+            per = len(idx) // data
+            out = run(idx[g * per:(g + 1) * per])
+        else:  # chunks of `data` tiles, tile g of each for group g
+            out = torch.cat([run(idx[c + g:c + g + 1]) for c in range(0, len(idx), data)])
+        if data > 1:  # each group's result from its first rank, in group order
+            every = tp.all_gather(out, 0).unflatten(0, (-1, out.shape[0]))[::size]
+            out = (every.reshape(-1, *out.shape[1:]) if grid is None
+                   else every.transpose(0, 1).reshape(-1, *out.shape[1:]))
+        return finish(out[:n])
+
+    @torch.no_grad()
+    def sample_pipelined(self, lq: torch.Tensor, generator: torch.Generator | None = None,
+                         devices: list | None = None, mask: torch.Tensor | None = None, *,
+                         noise_repeat: bool = False, chop_size: int | None = None,
+                         chop_stride: int | None = None, chunk_bs: int = 1,
+                         draws: tuple | None = None) -> torch.Tensor:
+        """`sample(..., tile_bs=chunk_bs)` with the reverse chain staged over
+        `devices` (this process's cards by default; parallel/pp.py): chunks
+        of `chunk_bs` tiles (of images where the input is not tiled) stream
+        through the stages; stage 0 encodes a chunk and draws its prior
+        from its noise, each stage runs its slice of the steps
+        (`pp.stage_slices`), the last decodes.  Each entry of `devices` is a
+        replica of its own (`_replicas`), which launches the kernels as
+        `sample` does; a row of devices for a stage (a 2-D `devices`, rows =
+        stages) splits each chunk over the row's replicas (PP x DP).  The
+        draws are `sample(..., tile_bs=chunk_bs)`'s (`chain_draws`, or
+        `draws`), so the result is that call's up to the rounding of the
+        smaller batches that a row or an untiled batch cut in chunks runs."""
+        from .parallel import pp
+
+        if self.variant != "resshift":
+            raise NotImplementedError("this sampler runs the residual-shifting chain only")
+        grid_devs = pp.stage_grid(devices)
+        tiles, mtiles, noise, eps, _, finish = self._tiled(
+            lq, mask, generator, draws, noise_repeat, chop_size or self.chop_size,
+            chop_stride or self.chop_stride, chunk_bs)
+        cb = max(1, min(int(chunk_bs), tiles.shape[0]))
+        chunks = [torch.arange(i, min(i + cb, tiles.shape[0]))
+                  for i in range(0, tiles.shape[0], cb)]
+        n_parts = len(grid_devs[0])
+        slots = iter(_replicas([d for row in grid_devs for d in row]))
+        models = [[self._compute_params(*next(slots)) for _ in row] for row in grid_devs]
+        starts, counts = pp.stage_slices(self.sched.num_timesteps, len(grid_devs))
+        clip = self.vq is None
+
+        def ingest(c, d, dev):
+            rows = torch.tensor_split(chunks[c], n_parts)[d]
+            if not len(rows):
+                return None
+            unet, vq = models[0][d]
+            x_lq = tiles[rows.to(tiles.device)].to(dev)
+            m = None if mtiles is None else mtiles[rows.to(tiles.device)].to(dev)
+            z_y = self._encode(vq, x_lq)
+            x = rs.prior_sample(self._schedule(dev), z_y, noise[rows.to(noise.device)].to(dev))
+            return {"x": x, "y": z_y, "eps": eps[:, rows.to(eps.device)].to(dev),
+                    "cond": self._cond_kwargs(unet, x_lq, m)}
+
+        def work(s, d, dev, p):
+            steps = range(starts[s], starts[s] - counts[s], -1)
+            x = rs.run_steps(self._schedule(dev), models[s][d][0], p["x"], p["y"], steps,
+                             p["eps"], clip_denoised=clip, model_kwargs=p["cond"])
+            return {**p, "x": x}
+
+        def emit(c, d, dev, p):
+            return self._decode(models[-1][d][1], p["x"]).clamp(-1.0, 1.0).to(self.device)
+
+        outs = pp.pipeline_stream(grid_devs, len(chunks), ingest, work, emit)
+        return finish(torch.cat([o for parts in outs for o in parts if o is not None]))
+

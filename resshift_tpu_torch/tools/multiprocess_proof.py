@@ -37,18 +37,38 @@ its own microbatches, and rank 0 saves the gathered state and the metrics
 (`<mode>/step.pt`); the report adds whether every rank's state hashes the
 same.
 
-Every child is killed in a `finally`, whatever ends the launcher; each has
-`--timeout` seconds.
+`--tp FILE` samples through `ResShiftPipeline.sample_tp` instead, on a
+spec that `torch.save` wrote: {'config' (a dict or a task name), 'dtype'
+('float32' or 'bfloat16'), 'unet' (and 'vqgan') state dicts, 'cases': a
+list of {'name', 'lq', 'mask' (optional), 'draws' (optional: else a
+generator on the rank's device seeded 'seed'), 'kw' (sample_tp's keyword
+arguments, `data` among them), 'reps'}}.  Every rank builds its split
+clone of the models for a case's group before the clock starts, then samples
+the case 'reps' times and
+saves its image (`tp/<name>_rank<r>.pt`); the report gives, for each case,
+whether every rank's image hashes the same, each rank's milliseconds a call
+and the collectives of one call; and whether the two forms of the
+all-gather (`tp.all_gather` and the zero-filled all-reduce that it takes
+for CUDA tensors on gloo, here on CPU tensors under gloo) gave every rank
+the same tensor.  `--backend gloo` lets ranks share a card (`--device
+cuda:0`), which NCCL refuses.
+
+Every child is killed in a `finally`, whatever ends the launcher, and dies
+with the launcher where that is killed (Linux's parent-death signal); each
+has `--timeout` seconds, its rendezvous three quarters of them.
 
     python -m resshift_tpu_torch.tools.multiprocess_proof --out DIR [--nproc 2]
         [--iters 3] [--modes dp,fsdp] [--step1] [--device cpu|cuda] [--config FILE.json]
         [--timeout 120]
     python -m resshift_tpu_torch.tools.multiprocess_proof --out DIR --step SPEC.pt [--modes dp]
+    python -m resshift_tpu_torch.tools.multiprocess_proof --out DIR --tp SPEC.pt [--nproc 2]
+        [--device cpu|cuda|cuda:N] [--backend gloo|nccl]
 
 Without `--config` the workers train a small realsr-shaped model (UNet 32
 channels, f4 VQGAN) on seeded random 16 -> 64 pairs that the launcher writes
 under DIR; `--config` names a JSON task config with its own data.  With
-`--device cuda` each worker computes on `cuda:LOCAL_RANK`.
+`--device cuda` each worker computes on `cuda:LOCAL_RANK`, with `cuda:N`
+every worker on card N.
 """
 
 from __future__ import annotations
@@ -59,13 +79,14 @@ import hashlib
 import json
 import os
 import shutil
+import signal
 import socket
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-__all__ = ["small_config", "launch", "launch_step", "main"]
+__all__ = ["small_config", "launch", "launch_step", "launch_tp", "main"]
 
 DIGESTS = ("params", "ema", "exp_avg", "exp_avg_sq")
 MODES = ("dp", "fsdp")
@@ -130,14 +151,25 @@ def _digests(state: dict, world: int) -> dict:
     return {f"{k}_digest": _digest(state[k]) if world > 1 else None for k in DIGESTS}
 
 
+def _init_group(args) -> None:
+    """The worker's threads and process group, its rendezvous bounded by
+    three quarters of the launcher's wait."""
+    import torch
+
+    from ..parallel.mesh import maybe_init_distributed
+
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", 1)))
+    maybe_init_distributed(force=True, device=args.device, timeout_s=0.75 * args.timeout,
+                           backend=args.backend)
+
+
 def worker(args) -> None:
     """Train the config once a mode, one mode after the other."""
     import torch
 
-    from ..parallel.mesh import maybe_init_distributed, process_device
+    from ..parallel.mesh import process_device
 
-    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", 1)))
-    maybe_init_distributed(force=True, device=args.device)
+    _init_group(args)
     device = process_device(args.device)
     for mode in args.modes.split(","):
         _train(args, mode, device)
@@ -200,12 +232,11 @@ def step_worker(args) -> None:
     import torch
 
     from ..checkpoint import save_params
-    from ..parallel.mesh import maybe_init_distributed, process_device, rank, world_size
+    from ..parallel.mesh import process_device, rank, world_size
     from ..pipeline import ResShiftPipeline
     from ..trainer import TrainConfig, TrainStep
 
-    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", 1)))
-    maybe_init_distributed(force=True, device=args.device)
+    _init_group(args)
     r, world = rank(), world_size()
     spec = torch.load(args.step, weights_only=True)
     device = process_device(args.device)
@@ -231,6 +262,52 @@ def step_worker(args) -> None:
     torch.distributed.destroy_process_group()
 
 
+def tp_worker(args) -> None:
+    """Every case of the spec through `sample_tp` on this rank."""
+    import torch
+
+    from ..parallel import tp
+    from ..parallel.mesh import process_device, rank, world_size
+    from ..pipeline import ResShiftPipeline
+
+    _init_group(args)
+    r, world = rank(), world_size()
+    device = process_device(args.device)
+    spec = torch.load(args.tp, weights_only=True, mmap=True)
+    pipe = ResShiftPipeline(spec["config"], dtype=getattr(torch, spec.get("dtype", "float32")),
+                            device=device)
+    pipe.load_state_dicts(unet=spec["unet"], vqgan=spec.get("vqgan"))
+    spec.pop("unet"), spec.pop("vqgan", None)
+    x = torch.randn(2, 3, 4, generator=torch.Generator().manual_seed(r))
+    if torch.distributed.get_backend() == "nccl":  # NCCL takes no CPU tensor
+        x = x.to(device)
+    forms = [tp.all_gather(x, 1), tp._gather_by_all_reduce(x).movedim(0, 1).flatten(1, 2)]
+    out, report = Path(args.out) / "tp", {"rank": r, "world": world, "cases": {},
+                                          "gather_forms_equal": torch.equal(*forms)}
+    for case in spec["cases"]:
+        draws, times = case.get("draws"), []
+        pipe._tp_models(tp.tp_groups(case.get("kw", {}).get("data", 1))[0])
+        for _ in range(case.get("reps", 1)):
+            gen = (None if draws is not None else
+                   torch.Generator(device=device).manual_seed(case.get("seed", 0)))
+            before = dict(tp.COLLECTIVES)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            img = pipe.sample_tp(case["lq"], gen, case.get("mask"), draws=draws,
+                                 **case.get("kw", {}))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            times.append((time.perf_counter() - t0) * 1e3)
+        img = img.cpu()
+        torch.save(img, out / f"{case['name']}_rank{r}.pt")
+        report["cases"][case["name"]] = {
+            "ms": times, "digest": _digest({"img": img}),
+            "collectives": {k: v - before[k] for k, v in tp.COLLECTIVES.items()}}
+    (out / f"digest_rank{r}.json").write_text(json.dumps(report))
+    torch.distributed.destroy_process_group()
+
+
 # ---------------------------------------------------------------- launcher
 
 def free_port() -> int:
@@ -239,11 +316,28 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _die_with_parent() -> None:
+    """The first thing a worker does: the kernel is to kill it when the
+    launcher (the thread of it that started the worker) dies
+    (PR_SET_PDEATHSIG, through libc where there is one), and it exits at
+    once where the launcher is already gone.  Without prctl the launcher's
+    `finally` is all there is."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL, 0, 0, 0)  # PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        pass
+    if os.getppid() != int(os.environ["LAUNCHER_PID"]):
+        os._exit(1)
+
+
 def _spawn(out: Path, nproc: int, worker_args: list[str], modes: tuple, device: str,
            timeout: float, threads: int) -> tuple[list, float]:
     """Start the workers with torchrun's environment and wait for them;
     returns their exit codes (None: cut at `timeout`) and the wall time.
-    Every worker still alive when this returns or raises is killed."""
+    Every worker still alive when this returns or raises is killed, and
+    each dies with this process where that is killed."""
     for mode in modes:  # the log and checkpoints of a run before
         shutil.rmtree(out / mode, ignore_errors=True)
         (out / mode).mkdir(parents=True)
@@ -254,10 +348,11 @@ def _spawn(out: Path, nproc: int, worker_args: list[str], modes: tuple, device: 
         for r in range(nproc):
             env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(nproc),
                        LOCAL_WORLD_SIZE=str(nproc), MASTER_ADDR="127.0.0.1",
-                       MASTER_PORT=str(port), OMP_NUM_THREADS=str(threads))
+                       MASTER_PORT=str(port), OMP_NUM_THREADS=str(threads),
+                       LAUNCHER_PID=str(os.getpid()))
             cmd = [sys.executable, "-m", "resshift_tpu_torch.tools.multiprocess_proof",
                    "--worker", "--out", str(out), "--device", device, "--modes", ",".join(modes),
-                   *worker_args]
+                   "--timeout", str(timeout), *worker_args]
             log = open(out / f"worker_{r}.log", "w")
             procs.append((subprocess.Popen(cmd, env=env, stdout=log, stderr=subprocess.STDOUT,
                                            cwd=Path(__file__).resolve().parents[2]), log))
@@ -299,6 +394,29 @@ def launch_step(out: str | Path, spec: str | Path, nproc: int = 2, modes: tuple 
     for mode in modes if ok else ():
         report[mode] = _identical(_ranks(out, mode, nproc))
         ok = ok and all(report[mode].values())
+    report["ok"] = ok
+    return report
+
+
+def launch_tp(out: str | Path, spec: str | Path, nproc: int = 2, device: str = "cpu",
+              backend: str | None = None, timeout: float = 120.0, threads: int = 1) -> dict:
+    """`sample_tp` on `spec` over `nproc` ranks (see the module's
+    docstring); returns the report, `ok` where every rank exited 0 with the
+    same image in every case."""
+    out = Path(out)
+    codes, wall = _spawn(out, nproc, ["--tp", str(spec)] + ["--backend", backend] * bool(backend),
+                         ("tp",), device, timeout, threads)
+    report: dict = {"nproc": nproc, "device": device, "wall_s": wall, "exit_codes": codes}
+    ok = all(c == 0 for c in codes)
+    if ok:
+        ranks = _ranks(out, "tp", nproc)
+        report["cases"] = {name: {
+            "ranks_equal": len({d["cases"][name]["digest"] for d in ranks}) == 1,
+            "ms": [d["cases"][name]["ms"] for d in ranks],
+            "collectives": ranks[0]["cases"][name]["collectives"]} for name in ranks[0]["cases"]}
+        report["gather_forms_equal"] = all(d["gather_forms_equal"] for d in ranks)
+        ok = report["gather_forms_equal"] and all(c["ranks_equal"]
+                                                  for c in report["cases"].values())
     report["ok"] = ok
     return report
 
@@ -353,24 +471,34 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=2, help="images a rank (built-in config)")
     ap.add_argument("--modes", default="dp",
                     help="comma list of dp (data-parallel) and fsdp (the state sharded)")
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    ap.add_argument("--device", default="cpu",
+                    help="cpu, cuda (each worker on cuda:LOCAL_RANK) or cuda:N (all on card N)")
+    ap.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                    help="the process group's backend (default: NCCL on a card, else gloo)")
     ap.add_argument("--config", default=None, help="a JSON task config with its data")
     ap.add_argument("--timeout", type=float, default=120.0, help="seconds for the workers")
     ap.add_argument("--threads", type=int, default=1, help="CPU threads a worker")
     ap.add_argument("--step", default=None, help="one train step on this spec (torch.save)")
     ap.add_argument("--step1", action="store_true",
                     help="also save the state after iteration 1 (step1.pt)")
+    ap.add_argument("--tp", default=None, help="sample_tp on this spec (torch.save)")
     args = ap.parse_args(argv)
     if args.worker:
-        (step_worker if args.step else worker)(args)
+        _die_with_parent()
+        (tp_worker if args.tp else step_worker if args.step else worker)(args)
         return
     modes = tuple(args.modes.split(","))
     if any(m not in MODES for m in modes):
         raise SystemExit(f"--modes takes {MODES}, got {args.modes}")
-    report = (launch_step(args.out, args.step, args.nproc, modes, args.device, args.timeout,
-                          args.threads) if args.step else
-              launch(args.out, args.nproc, args.iters, modes, args.device, args.config,
-                     args.batch, args.timeout, args.threads, args.step1))
+    if args.tp:
+        report = launch_tp(args.out, args.tp, args.nproc, args.device, args.backend,
+                           args.timeout, args.threads)
+    elif args.step:
+        report = launch_step(args.out, args.step, args.nproc, modes, args.device, args.timeout,
+                             args.threads)
+    else:
+        report = launch(args.out, args.nproc, args.iters, modes, args.device, args.config,
+                        args.batch, args.timeout, args.threads, args.step1)
     if not report["ok"]:
         for r in range(args.nproc):
             log = Path(args.out) / f"worker_{r}.log"
